@@ -1,8 +1,9 @@
 """Command line of the PyTorch/CUDA port.
 
-  python -m cube_slam_wu_tpu_torch.cli online --base <object_slam/data> --out out/ [--device cpu]
+  python -m cube_slam_wu_tpu_torch.cli online --base <object_slam/data> --out out/ [--window 16] [--device cpu]
 
-`online` always runs the fused per-frame step (slam/online.py).  It runs on
+`online` always runs the fused per-frame step (slam/online.py); `--window W`
+makes it the fixed-lag step, which optimises the trailing W frames only.  It runs on
 the GPU unless `--device cpu` is given, and fails when there is no GPU.
 """
 
@@ -41,8 +42,6 @@ def cmd_online(args):
 
     if not pathlib.Path(args.base).is_dir():
         raise SystemExit(f"error: --base {args.base!r} is not a directory")
-    if args.window and args.window > 0:
-        raise NotImplementedError("--window (fixed-lag step) is not ported yet")
     fr = run_online_slam_fused(
         args.base,
         n_frames=args.frames,
@@ -51,6 +50,7 @@ def cmd_online(args):
         max_detections=args.max_detections,
         iterations=args.iterations,
         bbox_edge_weight=args.bbox_edge_weight,
+        window=args.window if args.window and args.window > 0 else None,
         device=args.device,
     )
     truth = uio.read_number_txt(pathlib.Path(args.base) / "truth_cam_poses.txt")
@@ -74,7 +74,7 @@ def build_parser() -> argparse.ArgumentParser:
                     help="2D bbox projection-edge weight (0 = reference-"
                          "parity: 3D cuboid edges only)")
     pn.add_argument("--window", type=int, default=0,
-                    help="sliding BA window (not ported yet; 0 = full graph)")
+                    help="sliding BA window in frames (0 = full graph)")
     pn.add_argument("--max-objects", type=int, default=1)
     pn.add_argument("--max-detections", type=int, default=1)
     pn.add_argument("--float64", action="store_true")

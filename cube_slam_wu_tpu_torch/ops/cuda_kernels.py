@@ -6,13 +6,14 @@ transform, `out[y, x] = sqrt(max(0, min_x' ((x - x')^2 + g2[y, x'])))`,
 batched over boxes.
 
 Bound on an H100: `B*H*W^2` candidates of one fused multiply-add and one min
-against `2*B*H*W*4` bytes, i.e. about `W/2` operations per byte; the fp32
-ALUs bound it, not device memory.  The kernel (csrc/edt_row_min.cu) therefore
-reads each input once into shared memory, keeps the running minima of four
-output columns per thread in registers and feeds 16 fma + 16 min from one
-broadcast float4 shared load.  None of the TPU kernel's (8, 128) padding or
-its 128-column chunk loop is carried over; the ragged edge is handled by
-bounds.
+against `2*B*H*W*4` bytes, i.e. about `W/2` operations per byte; the
+instruction rate of the SMs bounds it, not device memory.  The kernel
+(csrc/edt_row_min.cu) therefore stages each row once in shared memory, keeps
+the running minima of several output columns per thread in registers, and
+folds two candidates into the minimum with one three-input integer min on the
+bit patterns (all candidates are made non-negative by a constant that comes
+off at the end).  None of the TPU kernel's (8, 128) padding or its 128-column
+chunk loop is carried over; the ragged edge is handled by bounds.
 
 The kernel is compiled with nvcc at first use into a shared library with a
 plain C interface and loaded with ctypes.  The wrapper takes the plain version
@@ -38,6 +39,11 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC",
 )
 MAX_WIDTH = 2048  # the row of `a` is staged in shared memory
+# The kernel adds the constant K = Wp * max(Wp, 64) (Wp: W rounded up to 4) to
+# every candidate; its integer terms reach K + W^2 + H^2, which must stay
+# exactly representable in float32 for the result to keep the plain version's
+# bits.
+EXACT_LIMIT = 2**24
 
 # Launch counts, one per kernel: a wrapper adds one where it launches its
 # kernel and nowhere else.
@@ -127,6 +133,9 @@ def _edt_lib() -> ctypes.CDLL:
         ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
+    var = lib.edt_row_min_launch_variant
+    var.argtypes = fn.argtypes + [ctypes.c_int] * 4
+    var.restype = ctypes.c_int
     return lib
 
 
@@ -152,11 +161,13 @@ def edt_row_min_plain(g2: torch.Tensor, row_chunk: int = 32) -> torch.Tensor:
     return torch.sqrt(out)
 
 
-def edt_row_min(g2: torch.Tensor) -> torch.Tensor:
+def edt_row_min(g2: torch.Tensor, variant=None) -> torch.Tensor:
     """Row pass of the exact EDT for `g2 (..., H, W)`; float32 out.
 
     A CPU tensor takes the plain version.  A CUDA tensor launches the kernel
-    (built on first use) or raises.
+    (built on first use) or raises.  `variant=(cols, min3, mode, split)`
+    launches another design of the kernel than the chosen one (see
+    csrc/edt_row_min.cu; tools/edt_variants.py times them).
     """
     if g2.device.type == "cpu":
         return edt_row_min_plain(g2)
@@ -167,6 +178,12 @@ def edt_row_min(g2: torch.Tensor) -> torch.Tensor:
     h, w = g2.shape[-2:]
     if w > MAX_WIDTH:
         raise ValueError(f"edt_row_min: width {w} above {MAX_WIDTH}")
+    wp = (w + 3) // 4 * 4
+    if wp * max(wp, 64) + w * w + h * h > EXACT_LIMIT:
+        raise ValueError(
+            f"edt_row_min: K + W^2 + H^2 above 2^24 at {h}x{w}: the result "
+            "would not be exact"
+        )
     g2 = g2.to(torch.float32).contiguous()
     out = torch.empty_like(g2)
     rows = g2.numel() // w if w else 0
@@ -175,9 +192,15 @@ def edt_row_min(g2: torch.Tensor) -> torch.Tensor:
     lib = _edt_lib()
     with torch.cuda.device(g2.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.edt_row_min_launch(
-            g2.data_ptr(), out.data_ptr(), rows, w, stream
-        )
+        if variant is None:
+            err = lib.edt_row_min_launch(
+                g2.data_ptr(), out.data_ptr(), rows, w, stream
+            )
+        else:
+            err = lib.edt_row_min_launch_variant(
+                g2.data_ptr(), out.data_ptr(), rows, w, stream,
+                *(int(v) for v in variant),
+            )
     LAUNCHES["edt_row_min"] += 1
     if err != 0:
         raise RuntimeError(f"edt_row_min: kernel launch failed (cudaError {err})")

@@ -1,8 +1,9 @@
 """Carrying state across: numpy trees <-> the port's NamedTuples of tensors.
 
-The system has no learned weights; its state is the graph and the tracklet
-book.  `state_from_numpy` takes an `OnlineState`, `CameraObjectGraph`,
-`OnlineBook`, `SE3` or `Cuboid` given as nested dicts (or positional tuples)
+The system has no learned weights; its state is the graph, the tracklet book
+and, on the fixed-lag path, the landmark prior.  `state_from_numpy` takes an
+`OnlineState`, `CameraObjectGraph`, `OnlineBook`, `CubePrior`, `SE3` or
+`Cuboid` given as nested dicts (or positional tuples)
 of numpy arrays — e.g. another implementation's state after `._asdict()` —
 and builds the port's type on a device; `state_to_numpy` goes back.  Floating
 arrays take `dtype`; bool and integer arrays keep theirs (int32 where the
@@ -18,6 +19,7 @@ from cube_slam_wu_tpu_torch.core.cuboid import Cuboid
 from cube_slam_wu_tpu_torch.core.se3 import SE3
 from cube_slam_wu_tpu_torch.slam.graph import CameraObjectGraph
 from cube_slam_wu_tpu_torch.slam.online import OnlineBook, OnlineState
+from cube_slam_wu_tpu_torch.slam.window import CubePrior
 
 # nested field types, by NamedTuple and field name
 _SCHEMA = {
@@ -27,7 +29,8 @@ _SCHEMA = {
         "cam_Tcw": SE3, "cube": Cuboid, "odom": SE3, "cube_meas": Cuboid,
     },
     OnlineBook: {},
-    OnlineState: {"graph": CameraObjectGraph, "book": OnlineBook},
+    CubePrior: {"lin": Cuboid},
+    OnlineState: {"graph": CameraObjectGraph, "book": OnlineBook, "prior": CubePrior},
 }
 
 
@@ -63,7 +66,7 @@ def _guess_type(tree):
     keys = set(tree.keys()) if isinstance(tree, dict) else None
     if keys is None:
         raise TypeError("state_from_numpy: pass a dict tree or name the type with `kind`")
-    for cls in (OnlineState, CameraObjectGraph, OnlineBook, Cuboid, SE3):
+    for cls in (OnlineState, CameraObjectGraph, OnlineBook, CubePrior, Cuboid, SE3):
         if keys == set(cls._fields) or (cls is OnlineState and {"graph", "book"} <= keys):
             return cls
     raise TypeError(f"state_from_numpy: unrecognised fields {sorted(keys)}")
@@ -74,7 +77,8 @@ def state_from_numpy(tree, device, dtype=torch.float32, kind=None):
 
     `tree` is a dict keyed by field name (nested NamedTuples as nested dicts
     or as objects with `_asdict`), or a positional tuple when `kind` names the
-    type (`OnlineState`, `CameraObjectGraph`, `OnlineBook`, `SE3`, `Cuboid`).
+    type (`OnlineState`, `CameraObjectGraph`, `OnlineBook`, `CubePrior`, `SE3`,
+    `Cuboid`).
     """
     if hasattr(tree, "_asdict"):
         tree = tree._asdict()

@@ -15,8 +15,9 @@ stays on the device:
   as device arrays;
 - ground->camera measurement assembly with yaw canonicalization
   (main_obj.cpp:649-675, :732);
-- the incremental BA step (tracker.make_incremental_step — constant-velocity
-  init, innovation weighting, LM).
+- the incremental BA step (tracker.make_incremental_step, or with `window=W`
+  the fixed-lag tracker.make_windowed_step — constant-velocity init,
+  innovation weighting, LM).
 
 Per frame the host (a) ships the grayscale up as uint8 with the boxes (it is
 cast to float on the device), and (b) pulls the optimised pose + a handful of
@@ -49,6 +50,7 @@ from cube_slam_wu_tpu_torch.core.cuboid import Cuboid
 from cube_slam_wu_tpu_torch.core.se3 import SE3
 from cube_slam_wu_tpu_torch.slam import tracker
 from cube_slam_wu_tpu_torch.slam.graph import CameraObjectGraph
+from cube_slam_wu_tpu_torch.slam.window import CubePrior
 from cube_slam_wu_tpu_torch.utils import hostsync
 from cube_slam_wu_tpu_torch.utils import io as uio
 
@@ -83,8 +85,9 @@ class OnlineBook(NamedTuple):
 class OnlineState(NamedTuple):
     graph: CameraObjectGraph
     book: OnlineBook
-    # fixed-lag smoother prior; unused by the full-graph (window=None) path
-    prior: object = None
+    # fixed-lag smoother prior (slam.window.CubePrior); present but unused
+    # when the step runs the full-graph (window=None) path
+    prior: CubePrior | None = None
 
 
 class StepReport(NamedTuple):
@@ -209,6 +212,10 @@ def make_online_step(
     `device=None` means the card (raises without one); the CPU is used only
     on `device="cpu"`.
 
+    `window=W < capacity` runs the fixed-lag smoother: only the trailing W
+    frames are optimised and `state.prior` (a `CubePrior`) carries what the
+    departed frames knew of the landmarks.
+
     Returns step(state, gray_u8 (H, W) uint8, boxes_c (D, 4) corners,
     det_mask (D,), i int) -> (state', (Twc (7,) [x y z qw qx qy qz],
     StepReport)), all tensors on `device`.
@@ -227,10 +234,6 @@ def make_online_step(
     dev = resolve_device(device)
     detect_cfg = detect_cfg or DetectConfig()
     _check_config(detect_cfg)
-    if window is not None and window < capacity:
-        raise NotImplementedError("window < capacity (fixed-lag step) is not ported yet")
-    if robust_delta is not None:
-        raise NotImplementedError("robust_delta is not ported yet")
     over = dict(proposal_overrides or {})
     over.setdefault("nominal_skew_ratio", 2.0)  # main_obj.cpp:499
     over.setdefault("rank_margin", 2e-3)
@@ -248,9 +251,15 @@ def make_online_step(
     cam_t = T0_t[:3, 3]
     first_Twc = SE3.from_matrix(T0_t)
 
-    ba_step = tracker.make_incremental_step(
-        iterations, None, soft_gate_alpha, soft_gate_power, None
-    )
+    windowed = window is not None and window < capacity
+    if windowed:
+        ba_step = tracker.make_windowed_step(
+            window, iterations, None, soft_gate_alpha, soft_gate_power, robust_delta
+        )
+    else:
+        ba_step = tracker.make_incremental_step(
+            iterations, None, soft_gate_alpha, soft_gate_power, robust_delta
+        )
 
     def caps_off(cfg):
         return dataclasses.replace(
@@ -349,8 +358,14 @@ def make_online_step(
                 matched, torch.full_like(quality, bbox_edge_weight), torch.zeros_like(quality)
             ),
         )
+        prior = state.prior
         with record_function("online/insert_and_ba"):
-            graph, (chi2, _) = ba_step(graph, (i, frame, first_Twc))
+            if windowed:
+                (graph, prior), (chi2, _) = ba_step(
+                    (graph, prior), (i, frame, first_Twc)
+                )
+            else:
+                graph, (chi2, _) = ba_step(graph, (i, frame, first_Twc))
 
         Twc = graph.cam_Tcw[i].inverse()
         out = (
@@ -364,7 +379,7 @@ def make_online_step(
                 chi2=chi2,
             ),
         )
-        return OnlineState(graph, book, state.prior), out
+        return OnlineState(graph, book, prior), out
 
     return step
 
@@ -378,6 +393,8 @@ class FusedRunResult(NamedTuple):
     syncs_per_frame: float  # measured blocking host reads / frame
     bytes_up_per_frame: float
     bytes_down_per_frame: float
+    # (O,) objects the fixed-lag prior holds; None on the full-graph path
+    prior_valid: np.ndarray | None = None
 
 
 def run_online_frames(
@@ -400,6 +417,9 @@ def run_online_frames(
     det_mask (D,) bool)` as numpy arrays, `n_frames` of them; `K_np` are the
     intrinsics and `T0_np` the fixed camera-to-world pose of frame 0.
     `on_frame(i)` (optional) is called after frame i was enqueued.
+
+    `window=W` (passed on to `make_online_step`) runs the fixed-lag smoother
+    when W is below the capacity.
 
     With `overlap=True` the pose of frame i-1 is pulled while frame i's work
     is in flight (one-frame latency, standard double buffering).
@@ -427,7 +447,11 @@ def run_online_frames(
     graph = CameraObjectGraph.empty(capacity, max_objects, dtype, dev)._replace(
         K=torch.as_tensor(np.asarray(K_np, np.float64)).to(device=dev, dtype=dtype)
     )
-    state = OnlineState(graph, OnlineBook.empty(max_objects, dtype, dev), None)
+    window = step_kwargs.get("window")
+    prior = None
+    if window is not None and window < capacity:
+        prior = CubePrior.empty(max_objects, dtype, dev)
+    state = OnlineState(graph, OnlineBook.empty(max_objects, dtype, dev), prior)
 
     start = hostsync.snapshot()
     outs = []
@@ -457,10 +481,11 @@ def run_online_frames(
     if pending is not None:
         outs.append(pull(pending))
 
-    traj, cubes, cube_valid = hostsync.pull(
-        (state.graph.cam_Twc().to_xyzq(), state.graph.cube.to_minimal(),
-         state.graph.cube_valid)
-    )
+    final = (state.graph.cam_Twc().to_xyzq(), state.graph.cube.to_minimal(),
+             state.graph.cube_valid)
+    if state.prior is not None:
+        final += (state.prior.valid,)
+    traj, cubes, cube_valid, *prior_valid = hostsync.pull(final)
     end = hostsync.snapshot()
     n_done = max(len(outs), 1)
     report = dict(
@@ -479,6 +504,7 @@ def run_online_frames(
         syncs_per_frame=(end["syncs"] - start["syncs"]) / n_done,
         bytes_up_per_frame=(end["h2d_bytes"] - start["h2d_bytes"]) / n_done,
         bytes_down_per_frame=(end["d2h_bytes"] - start["d2h_bytes"]) / n_done,
+        prior_valid=np.asarray(prior_valid[0]) if prior_valid else None,
     )
 
 

@@ -4,7 +4,8 @@ Re-designs the reference's per-frame loop (incremental_build_graph,
 object_slam/src/main_obj.cpp:479-841): every step activates one more frame
 in the fixed-capacity graph (constant-velocity pose initialisation,
 measurement insertion) and re-optimises the full graph with 5 LM iterations
-— the same O(N)-per-frame re-optimisation schedule as the reference.
+— the same O(N)-per-frame re-optimisation schedule as the reference — or,
+in the fixed-lag step, only the trailing window (slam/window.py).
 
 Objects are a batch axis: each frame carries up to O cuboid measurements
 (with masks); an object's vertex is initialised from its first observation
@@ -24,6 +25,7 @@ import torch
 from cube_slam_wu_tpu_torch.core.cuboid import Cuboid
 from cube_slam_wu_tpu_torch.core.se3 import SE3
 from cube_slam_wu_tpu_torch.slam import ba
+from cube_slam_wu_tpu_torch.slam import window as win_mod
 from cube_slam_wu_tpu_torch.slam.graph import CameraObjectGraph
 
 
@@ -67,18 +69,16 @@ def _insert_frame(
     soft_gate_power: float,
 ) -> CameraObjectGraph:
     """Constant-velocity pose init + measurement insertion + cuboid vertex
-    initialisation.
+    initialisation (shared by the full-graph and windowed steps).
 
     Innovation gating (beyond the reference, which feeds every detection into
     the graph unweighted): before inserting a camera-object edge, the 9-d
     `min_log_error` innovation of the measurement against the CURRENT cuboid
     estimate (at the constant-velocity predicted pose) is computed;
+    `gate_threshold` drops edges whose innovation norm exceeds it, and
     `soft_gate_alpha` scales the measurement quality by
     1/(1 + alpha*innovation^power).  This is what keeps the online pipeline
-    at trajectory parity despite noisier single-frame detections.  The hard
-    `gate_threshold` is not ported yet."""
-    if gate_threshold is not None:
-        raise NotImplementedError("gate_threshold is not ported yet")
+    at trajectory parity despite noisier single-frame detections."""
     O = graph.n_objects
     i = int(i)
 
@@ -109,6 +109,8 @@ def _insert_frame(
             quality / (1.0 + soft_gate_alpha * innovation**soft_gate_power),
             quality,
         )
+    if gate_threshold is not None:
+        has_meas = has_meas & (~can_gate | (innovation < gate_threshold))
 
     # -- write the new frame into the graph ------------------------------
     g = graph._replace(
@@ -157,10 +159,6 @@ def make_incremental_step(
 
     `first_pose` is the fixed frame-0 camera-to-world pose (the reference
     uses the first ground-truth pose, main_obj.cpp:526)."""
-    if gate_threshold is not None:
-        raise NotImplementedError("gate_threshold is not ported yet")
-    if robust_delta is not None:
-        raise NotImplementedError("robust_delta is not ported yet")
 
     def step(carry, inp):
         graph: CameraObjectGraph = carry
@@ -170,7 +168,9 @@ def make_incremental_step(
             gate_threshold, soft_gate_alpha, soft_gate_power,
         )
         # -- full-graph re-optimisation (main_obj.cpp:802-803) ---------------
-        result = ba.optimize(g, iterations=iterations, fix_first=True)
+        result = ba.optimize(
+            g, iterations=iterations, fix_first=True, robust_delta=robust_delta
+        )
         g = g._replace(cam_Tcw=result.cam_Tcw, cube=result.cube)
         # skip everything for padded slots
         g = ba.tree_where(frame.active, g, graph)
@@ -181,6 +181,59 @@ def make_incremental_step(
     return step
 
 
-def make_windowed_step(window: int, *args, **kwargs):
-    """Fixed-lag step (slam/window.py): not ported yet."""
-    raise NotImplementedError("make_windowed_step (window < capacity) is not ported yet")
+def make_windowed_step(
+    window: int,
+    iterations: int = 5,
+    gate_threshold: float | None = None,
+    soft_gate_alpha: float | None = None,
+    soft_gate_power: float = 1.0,
+    robust_delta: float | None = None,
+):
+    """Fixed-lag step: ((graph, prior), (index, FrameInput, first_pose)) ->
+    ((graph, prior), (chi2, cubes)).  Optimises only the trailing `window`
+    frames; on frame departure its cuboid edges are absorbed into the Gaussian
+    prior (slam.window).  Per-frame cost is O(window^2 .. ^3) independent of
+    the sequence length, unlike the reference's whole-graph re-optimisation
+    (main_obj.cpp:802-803).
+
+    The frame index is a host integer, so the departing frame and the
+    window's start are host arithmetic and the window is a plain slice."""
+    W = int(window)
+
+    def step(carry, inp):
+        graph, prior = carry
+        i, frame, first_Twc = inp
+        i = int(i)
+        g = _insert_frame(
+            graph, i, frame, first_Twc,
+            gate_threshold, soft_gate_alpha, soft_gate_power,
+        )
+
+        # -- absorb the departing frame (index i - W) into the prior ---------
+        d = max(i - W, 0)
+        mask_d = g.cube_meas_mask[d] if i >= W else torch.zeros_like(g.cube_meas_mask[d])
+        prior_new = win_mod.absorb_frame(
+            prior,
+            g.cam_Tcw[d].inverse(),
+            Cuboid(g.cube_meas.pose[d], g.cube_meas.scale[d]),
+            g.cube_meas_weight[d],
+            mask_d,
+            g.cube,
+        )
+
+        # -- optimise the trailing window ------------------------------------
+        s = min(max(i - W + 1, 0), g.capacity - W)
+        win = win_mod.window_slice(g, s, W)
+        result = ba.optimize(
+            win, iterations=iterations, fix_first=True, prior=prior_new,
+            robust_delta=robust_delta,
+        )
+        g = win_mod.window_scatter(g, result.cam_Tcw, s)
+        g = g._replace(cube=result.cube)
+
+        # skip everything for padded slots
+        g = ba.tree_where(frame.active, g, graph)
+        prior_new = ba.tree_where(frame.active, prior_new, prior)
+        return (g, prior_new), (result.chi2, g.cube.to_minimal())
+
+    return step

@@ -1,14 +1,17 @@
 """Where a frame's time goes on the card: the fused online step under
 torch.profiler.
 
-    python -m cube_slam_wu_tpu_torch.tools.profile_step [--frames 6] [--out DIR]
+    python -m cube_slam_wu_tpu_torch.tools.profile_step [--frames 6] [--window W] [--out DIR]
 
 Runs the synthetic 480x640 three-object sequence of chip_smoke.py for a few
 warm-up frames, then profiles `--frames` more, and prints one JSON line: wall
 ms/frame (profiler on), device-busy ms/frame (sum of kernel and memcpy time),
 the idle share of the card, the number of device kernels per frame, host and
 device span (first to last kernel) of each labelled stage of the step
-(`online/...`) and the ten kernels with the most device time.  Needs a CUDA device.
+(`online/...`) and the ten kernels with the most device time.  With
+`--window W` the step is the fixed-lag one, and the warm-up runs until the
+window slides (W + 2 frames unless `--warmup` says more), so that every
+profiled frame absorbs a departing frame.  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -16,13 +19,13 @@ from __future__ import annotations
 import argparse
 import json
 import pathlib
-import subprocess
 import time
 
 import torch
 from torch.profiler import ProfilerActivity, profile
 
 from cube_slam_wu_tpu_torch.slam.online import run_online_frames, sequence_frames
+from cube_slam_wu_tpu_torch.tools.cardtime import nvidia_smi_line
 from cube_slam_wu_tpu_torch.utils import synth
 
 
@@ -30,10 +33,15 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=6)
     ap.add_argument("--warmup", type=int, default=4)
+    ap.add_argument("--window", type=int, default=0,
+                    help="fixed-lag window in frames (0 = full-graph step)")
     ap.add_argument("--out", default="build")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_step: needs a CUDA device")
+    window = args.window if args.window > 0 else None
+    if window is not None:
+        args.warmup = max(args.warmup, window + 2)
     n = args.warmup + args.frames
     seq = synth.make_sequence(n_frames=n, size=(480, 640), n_objects=3, seed=0)
     marks = {}
@@ -51,7 +59,7 @@ def main(argv=None) -> None:
 
     run_online_frames(
         sequence_frames(seq.images, seq.detections, 3), seq.K, seq.T_wc[0], n,
-        max_objects=3, max_detections=3, capacity=64, on_frame=on_frame,
+        max_objects=3, max_detections=3, capacity=64, window=window, on_frame=on_frame,
     )
     averages = prof.key_averages()
     is_stage = lambda e: e.key.startswith("online/")
@@ -71,17 +79,16 @@ def main(argv=None) -> None:
                 st["host_ms_per_frame"] = e.cpu_time_total / 1e3 / args.frames
     wall_ms = (marks["t1"] - marks["t0"]) * 1e3 / args.frames
     busy_ms = dev_us / 1e3 / args.frames
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True,
-    ).stdout.strip()
+    smi = nvidia_smi_line()
     out = pathlib.Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
-    (out / "profile_step.txt").write_text(
+    tag = f"_window{window}" if window else ""
+    (out / f"profile_step{tag}.txt").write_text(
         averages.table(sort_by="self_cuda_time_total", row_limit=60)
     )
     print(json.dumps({
-        "card": smi, "frames": args.frames, "stages": stages,
+        "card": smi, "frames": args.frames, "warmup": args.warmup, "window": window,
+        "stages": stages,
         "wall_ms_per_frame_profiler_on": wall_ms,
         "device_busy_ms_per_frame": busy_ms,
         "device_idle_share": 1.0 - busy_ms / wall_ms,

@@ -22,7 +22,11 @@ def test_edt_kernel_matches_plain_on_card():
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
     before = cuda_kernels.LAUNCHES["edt_row_min"]
-    for shape in ((3, 480, 640), (1, 375, 1242), (2, 97, 131)):
+    # the production shapes, a width that is no multiple of the kernel's tiles
+    # (5 columns per thread, source chunks of 32), a single column, and the
+    # widest allowed width
+    shapes = ((3, 480, 640), (1, 375, 1242), (2, 97, 131), (1, 5, 1), (1, 40, cuda_kernels.MAX_WIDTH))
+    for shape in shapes:
         edge = torch.from_numpy(rng.random(shape) < 0.01).to(dev)
         g2 = torch.clamp(timg._edt_1d_columns(edge), max=1e6) ** 2
         out = cuda_kernels.edt_row_min(g2)
@@ -33,4 +37,9 @@ def test_edt_kernel_matches_plain_on_card():
         cuda_kernels.edt_row_min(g2), cuda_kernels.edt_row_min_plain(g2),
         rtol=1e-6, atol=0,
     )
-    assert cuda_kernels.LAUNCHES["edt_row_min"] == before + 4
+    assert cuda_kernels.LAUNCHES["edt_row_min"] == before + len(shapes) + 1
+    # beyond the exactness limit K + W^2 + H^2 <= 2^24 the wrapper refuses
+    with pytest.raises(ValueError, match="exact"):
+        cuda_kernels.edt_row_min(torch.zeros((1, 3000, cuda_kernels.MAX_WIDTH), device=dev))
+    with pytest.raises(ValueError, match="width"):
+        cuda_kernels.edt_row_min(torch.zeros((1, 2, cuda_kernels.MAX_WIDTH + 1), device=dev))

@@ -20,6 +20,8 @@ supporting edge (an argmax over those angles) follows the last bit of each
 framework's atan2: a coin toss neither implementation owns (recorded in
 ROADMAP.md).  A real camera is never exactly level.
 
+The fixed-lag path is driven the same way in test_torch_online_window.py.
+
 Tolerances (float32 production dtype): identical `cube_valid` and integer
 report counters; trajectory 1e-3 m and 1e-3 on the quaternion; cuboids 5e-3
 (relative, where the TUM intrinsics blow the values up).
@@ -144,6 +146,15 @@ def test_state_handed_over_from_jax_after_4_frames(seq, jax_mem):
     assert int(rep.n_matched) == O
 
 
+def test_robust_delta_reaches_the_bundle_adjuster(seq):
+    """`robust_delta` of the online step (parity of the kernel itself:
+    test_torch_ba_options.py and test_torch_tracker.py)."""
+    a = _port_mem(seq, n=3, robust_delta=0.05)
+    b = _port_mem(seq, n=3)
+    assert np.isfinite(a.traj_Twc_xyzq).all() and a.cube_valid.all()
+    assert np.abs(a.traj_Twc_xyzq - b.traj_Twc_xyzq).max() > 1e-7
+
+
 @pytest.fixture(scope="module")
 def folder(seq, tmp_path_factory):
     jseq = jsynth.SynthSequence(*seq)
@@ -250,8 +261,6 @@ def test_device_none_without_gpu_raises(seq):
 @pytest.mark.parametrize(
     "kw",
     [
-        dict(window=3),
-        dict(robust_delta=1.0),
         dict(detect_cfg=DetectConfig(short_recovery=True)),
         dict(detect_cfg=DetectConfig(nfa_validation=True)),
         dict(proposal_overrides=dict(sample_bbox_height=True)),
@@ -277,5 +286,17 @@ def test_cli_online_on_cpu(folder, tmp_path, capsys):
     assert "ATE RMSE vs truth" in text and "host reads/frame" in text
     traj = tuio.read_number_txt(out / "output_cam_poses.txt")
     assert traj.shape == (2, 8)
-    with pytest.raises(NotImplementedError):
-        cli.main(["online", "--base", str(folder), "--window", "2", "--device", "cpu"])
+    # the fixed-lag path through the command line: 4 frames, window 2
+    out_w = tmp_path / "out_w"
+    cli.main([
+        "online", "--base", str(folder), "--out", str(out_w), "--frames", "4", "--window", "2",
+        "--max-objects", "3", "--max-detections", "3", "--device", "cpu",
+    ])
+    assert "ATE RMSE vs truth" in capsys.readouterr().out
+    traj_w = tuio.read_number_txt(out_w / "output_cam_poses.txt")
+    assert traj_w.shape == (4, 8) and np.isfinite(traj_w).all()
+    ref = tonline.run_online_slam_fused(
+        str(folder), n_frames=4, max_objects=3, max_detections=3, window=2, device="cpu"
+    )
+    assert ref.prior_valid is not None and ref.prior_valid.any()
+    np.testing.assert_allclose(traj_w[:, 1:4], ref.traj_Twc_xyzq[:, :3], atol=1e-5)

@@ -14,11 +14,13 @@ import jax.numpy as jnp
 from cube_slam_wu_tpu.slam.graph import CameraObjectGraph as JGraph
 from cube_slam_wu_tpu.slam.online import OnlineBook as JBook
 from cube_slam_wu_tpu.slam.online import OnlineState as JState
+from cube_slam_wu_tpu.slam.window import CubePrior as JPrior
 from cube_slam_wu_tpu_torch.core.cuboid import Cuboid
 from cube_slam_wu_tpu_torch.core.se3 import SE3
 from cube_slam_wu_tpu_torch.slam.convert import state_from_numpy, state_to_numpy
 from cube_slam_wu_tpu_torch.slam.graph import CameraObjectGraph
 from cube_slam_wu_tpu_torch.slam.online import OnlineBook, OnlineState
+from cube_slam_wu_tpu_torch.slam.window import CubePrior
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
@@ -54,6 +56,23 @@ def test_online_state_round_trip_from_jax_layout():
     assert OnlineState._fields == JState._fields
     assert CameraObjectGraph._fields == JGraph._fields
     assert OnlineBook._fields == JBook._fields
+
+
+def test_windowed_online_state_round_trip_from_jax_layout():
+    """A windowed state carries a CubePrior, whose `lin` is a Cuboid."""
+    rng = np.random.default_rng(2)
+    jstate = JState(
+        JGraph.empty(5, 3, jnp.float32), JBook.empty(3, jnp.float32), JPrior.empty(3, jnp.float32)
+    )
+    tree = _randomize(jax_tree_to_numpy(jstate), rng)
+    state = state_from_numpy(tree, "cpu", torch.float32)
+    assert isinstance(state.prior, CubePrior) and isinstance(state.prior.lin, Cuboid)
+    assert isinstance(state.prior.lin.pose, SE3) and state.prior.valid.dtype == torch.bool
+    assert state.prior.H.shape == (3, 9, 9) and state.prior.lin.pose.quat.shape == (3, 4)
+    assert_tree_close(tree, state_to_numpy(state), atol=0.0)
+    assert CubePrior._fields == JPrior._fields
+    prior = state_from_numpy(tree["prior"], "cpu", torch.float64)
+    assert isinstance(prior, CubePrior) and prior.S.dtype == torch.float64
 
 
 def test_round_trip_of_parts_and_dtype():

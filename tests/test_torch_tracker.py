@@ -10,6 +10,7 @@ from torch_parity import DTYPES, jax_tree_to_numpy, to_j, to_np, to_t, tree_np, 
 import jax.numpy as jnp
 
 from test_torch_backend import GRAPH
+from torch_window_parity import empty_graphs, first_poses, frame_inputs
 from cube_slam_wu_tpu.core.cuboid import Cuboid as JCuboid
 from cube_slam_wu_tpu.core.se3 import SE3 as JSE3
 from cube_slam_wu_tpu.slam import tracker as jtracker
@@ -117,3 +118,25 @@ def test_first_observation_is_well_posed(dt):
     c = tg.cube
     e = c.min_log_error(c)
     assert float(e.abs().max()) < (1e-12 if dt == "f64" else 1e-5)
+
+
+@pytest.mark.parametrize("dt", ["f64", "f32"])
+def test_gate_threshold_and_robust_delta_in_the_step(dt):
+    """The incremental step with the hard innovation gate and the Huber
+    kernel over 4 frames; the gate (0.25) drops some edges but not all."""
+    F, O = 6, 2
+    jstep = jtracker.make_incremental_step(5, 0.25, 1.0, 1.0, 0.5)
+    tstep = ttracker.make_incremental_step(5, 0.25, 1.0, 1.0, 0.5)
+    jg, tg = empty_graphs(F, O, dt, GRAPH["K"], GRAPH["cube"])
+    jfirst, tfirst = first_poses(GRAPH, dt)
+    rng = np.random.default_rng(5)
+    for i in range(4):
+        q = rng.uniform(0.5, 1.0, O)
+        jframe, tframe = frame_inputs(GRAPH, i, dt, q, np.ones(O, bool))
+        jg, (jchi2, _) = jstep(jg, (jnp.asarray(i, jnp.int32), jframe, jfirst))
+        tg, (tchi2, _) = tstep(tg, (i, tframe, tfirst))
+        np.testing.assert_array_equal(to_np(jg.cube_meas_mask), to_np(tg.cube_meas_mask))
+        np.testing.assert_allclose(float(jchi2), float(tchi2), rtol=1e-6 if dt == "f64" else 5e-3, atol=1e-9)
+    assert_tree_close(jax_tree_to_numpy(jg), tree_np(tg), atol=1e-6 if dt == "f64" else 1e-3)
+    kept = to_np(tg.cube_meas_mask)[:4]
+    assert kept[0].all() and 0 < kept.sum() < kept.size, kept
