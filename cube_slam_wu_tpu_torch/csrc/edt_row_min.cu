@@ -14,7 +14,7 @@
 // 128 fp32 lanes of an SM per clock, a float min (FMNMX) on 64, and every
 // instruction takes one of the 128 dispatch slots per clock.  No tensor cores,
 // TMA or clusters apply: there is no matrix product and the input is read
-// once.  The chosen design (edt_row_min_imm_kernel<5>) for that bound:
+// once.  The design for that bound:
 //   * one block per (box, row); the row of a[] is staged in shared memory
 //     once, so device memory is read once and written once;
 //   * half the mins: a[] is staged with a constant K >= W^2 added, which
@@ -23,115 +23,35 @@
 //     fold into the running minimum with ONE three-input integer min
 //     (__vimin3_s32, SASS VIMNMX3) instead of two FMNMX.  K comes off with
 //     x^2 at the end; with K + W^2 + H^2 <= 2^24 all terms stay exact
-//     integers, so the bits do not change (the wrapper checks that limit);
+//     integers, so the bits do not change.  This holds for the input the
+//     distance transform gives, g2 integer-valued and at most H^2 or the
+//     1e12 of a column without an edge (the wrapper checks the limit from the
+//     shape).  A fractional g2 is NOT in the contract: it would be rounded
+//     to the float32 spacing at K + W^2, up to 0.5 at the widest row;
 //   * no instruction makes x': the source columns are walked in chunks of
 //     32 with the offset inside the chunk as an FFMA immediate (see the
 //     kernel's own comment), so a chunk costs 32 FFMA + 16 VIMNMX3 + 3 per
 //     output column and 8 broadcast float4 shared loads per thread;
 //   * every thread owns 5 output columns held in registers: 4 full warps at
-//     W = 640, 8 at W = 1242, 46 registers, and the fastest of 4..8 at both
-//     production widths;
+//     W = 640, 8 at W = 1242, 46 registers;
 //   * the ragged edge is handled by bounds: a[] is padded to a multiple of
 //     32 inside shared memory only, with a value that can never win the min.
 // No fast-math: sqrtf stays correctly rounded.
-//
-// edt_row_min_kernel holds the other designs that were timed (two-input
-// float min as in the first version of this kernel, x' by float adds or from
-// a second shared table, 4 to 8 columns per thread, a row split over several
-// blocks: none of them is faster); tools/edt_variants.py times all of them
-// side by side through edt_row_min_launch_variant.
 
 #include <cuda_runtime.h>
 
 #define EDT_PAD 1.0e30f
 #define EDT_INIT 3.0e38f
-#ifndef EDT_UNROLL
-#define EDT_UNROLL 2
-#endif
-#define EDT_STR2(x) #x
-#define EDT_STR(x) EDT_STR2(x)
-#define EDT_PRAGMA_UNROLL _Pragma(EDT_STR(unroll EDT_UNROLL))
+#define EDT_COLS 5  // output columns per thread
 
-template <int COLS, bool MIN3, bool XTAB>
-__global__ void edt_row_min_kernel(const float* __restrict__ g2,
-                                   float* __restrict__ out, int W, float K) {
-  extern __shared__ __align__(16) float smem[];
-  const size_t row = blockIdx.x;  // flat (box, y)
-  const float* src = g2 + row * (size_t)W;
-  float* dst = out + row * (size_t)W;
-  const int Wp = (W + 3) & ~3;
-  float* a = smem;
-  float* xs = smem + Wp;  // only when XTAB
-
-  for (int i = threadIdx.x; i < Wp; i += blockDim.x) {
-    const float xi = (float)i;
-    a[i] = (i < W) ? (src[i] + (xi * xi + K)) : EDT_PAD;
-    if (XTAB) xs[i] = xi;
-  }
-  __syncthreads();
-
-  const float4* a4 = reinterpret_cast<const float4*>(a);
-  const float4* x4 = reinterpret_cast<const float4*>(xs);
-  const int n4 = Wp >> 2;
-  const int base = blockIdx.y * (COLS * blockDim.x);
-
-  float m2x[COLS], acc[COLS];
-#pragma unroll
-  for (int c = 0; c < COLS; ++c) {
-    const int x = base + threadIdx.x + c * blockDim.x;
-    m2x[c] = -2.0f * (float)x;
-    acc[c] = EDT_INIT;
-  }
-  float xp = 0.0f;
-  EDT_PRAGMA_UNROLL
-  for (int j = 0; j < n4; ++j) {
-    const float4 v = a4[j];
-    float4 q;
-    if (XTAB) {
-      q = x4[j];
-    } else {
-      q.x = xp;
-      q.y = xp + 1.0f;
-      q.z = xp + 2.0f;
-      q.w = xp + 3.0f;
-      xp += 4.0f;
-    }
-#pragma unroll
-    for (int c = 0; c < COLS; ++c) {
-      const float c0 = fmaf(m2x[c], q.x, v.x);
-      const float c1 = fmaf(m2x[c], q.y, v.y);
-      const float c2 = fmaf(m2x[c], q.z, v.z);
-      const float c3 = fmaf(m2x[c], q.w, v.w);
-      if (MIN3) {
-        int m = __float_as_int(acc[c]);
-        m = __vimin3_s32(m, __float_as_int(c0), __float_as_int(c1));
-        m = __vimin3_s32(m, __float_as_int(c2), __float_as_int(c3));
-        acc[c] = __int_as_float(m);
-      } else {
-        acc[c] = fminf(fminf(fminf(fminf(acc[c], c0), c1), c2), c3);
-      }
-    }
-  }
-#pragma unroll
-  for (int c = 0; c < COLS; ++c) {
-    const int x = base + threadIdx.x + c * blockDim.x;
-    if (x < W) {
-      const float xf = (float)x;
-      dst[x] = sqrtf(fmaxf(acc[c] + (xf * xf - K), 0.0f));
-    }
-  }
-}
-
-// The same row pass with x' as an immediate: the source columns are walked in
-// chunks of 32, x' = xb + k.  Within a chunk the candidate less its part
+// x' as an immediate: the source columns are walked in chunks of 32,
+// x' = xb + k.  Within a chunk the candidate less its part
 // -2*x*xb, a[xb + k] - 2*x*k, has k as a compile-time constant, so no x' is
 // computed or loaded; the chunk's minimum gets -2*x*xb added once and goes
 // into the running minimum with one FMNMX.  K >= 62*W keeps the chunk's
 // candidates non-negative.
-template <int COLS>
-__global__ void edt_row_min_imm_kernel(const float* __restrict__ g2,
-                                       float* __restrict__ out, int W,
-                                       float K) {
+__global__ void edt_row_min_kernel(const float* __restrict__ g2,
+                                   float* __restrict__ out, int W, float K) {
   extern __shared__ __align__(16) float smem[];
   const size_t row = blockIdx.x;
   const float* src = g2 + row * (size_t)W;
@@ -147,25 +67,24 @@ __global__ void edt_row_min_imm_kernel(const float* __restrict__ g2,
 
   const float4* a4 = reinterpret_cast<const float4*>(a);
   const int n32 = Wp >> 5;
-  const int base = blockIdx.y * (COLS * blockDim.x);
 
-  float m2x[COLS], acc[COLS], s[COLS];
+  float m2x[EDT_COLS], acc[EDT_COLS], s[EDT_COLS];
 #pragma unroll
-  for (int c = 0; c < COLS; ++c) {
-    const int x = base + threadIdx.x + c * blockDim.x;
+  for (int c = 0; c < EDT_COLS; ++c) {
+    const int x = threadIdx.x + c * blockDim.x;
     m2x[c] = -2.0f * (float)x;
     acc[c] = EDT_INIT;
     s[c] = 0.0f;
   }
   for (int b = 0; b < n32; ++b) {
-    int loc[COLS];
+    int loc[EDT_COLS];
 #pragma unroll
-    for (int c = 0; c < COLS; ++c) loc[c] = __float_as_int(EDT_INIT);
+    for (int c = 0; c < EDT_COLS; ++c) loc[c] = __float_as_int(EDT_INIT);
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const float4 v = a4[b * 8 + j];
 #pragma unroll
-      for (int c = 0; c < COLS; ++c) {
+      for (int c = 0; c < EDT_COLS; ++c) {
         const float c0 = fmaf(m2x[c], (float)(4 * j), v.x);
         const float c1 = fmaf(m2x[c], (float)(4 * j + 1), v.y);
         const float c2 = fmaf(m2x[c], (float)(4 * j + 2), v.z);
@@ -175,23 +94,19 @@ __global__ void edt_row_min_imm_kernel(const float* __restrict__ g2,
       }
     }
 #pragma unroll
-    for (int c = 0; c < COLS; ++c) {
+    for (int c = 0; c < EDT_COLS; ++c) {
       acc[c] = fminf(acc[c], __int_as_float(loc[c]) + s[c]);
       s[c] = fmaf(m2x[c], 32.0f, s[c]);
     }
   }
 #pragma unroll
-  for (int c = 0; c < COLS; ++c) {
-    const int x = base + threadIdx.x + c * blockDim.x;
+  for (int c = 0; c < EDT_COLS; ++c) {
+    const int x = threadIdx.x + c * blockDim.x;
     if (x < W) {
       const float xf = (float)x;
       dst[x] = sqrtf(fmaxf(acc[c] + (xf * xf - K), 0.0f));
     }
   }
-}
-
-static int edt_warps_per_row(int W, int cols) {
-  return (W + 32 * cols - 1) / (32 * cols);
 }
 
 static float edt_offset(int W) {
@@ -201,59 +116,18 @@ static float edt_offset(int W) {
   return w * (w > 64.0f ? w : 64.0f);
 }
 
-template <int COLS>
-static void edt_launch_cols(const float* g2, float* out, long long rows, int W,
-                            int min3, int mode, int split, cudaStream_t s) {
-  const int warps_row = edt_warps_per_row(W, COLS);
-  if (split > warps_row) split = warps_row;
-  const int warps_block = (warps_row + split - 1) / split;
-  const dim3 grid((unsigned int)rows, (warps_row + warps_block - 1) / warps_block);
-  const int threads = 32 * warps_block;
-  const size_t row4 = (size_t)((W + 3) & ~3) * sizeof(float);
-  const float K = edt_offset(W);
-  if (mode == 2) {
-    const size_t row32 = (size_t)((W + 31) & ~31) * sizeof(float);
-    edt_row_min_imm_kernel<COLS><<<grid, threads, row32, s>>>(g2, out, W, K);
-  } else if (min3 && mode == 1) {
-    edt_row_min_kernel<COLS, true, true><<<grid, threads, 2 * row4, s>>>(g2, out, W, K);
-  } else if (min3) {
-    edt_row_min_kernel<COLS, true, false><<<grid, threads, row4, s>>>(g2, out, W, K);
-  } else if (mode == 1) {
-    edt_row_min_kernel<COLS, false, true><<<grid, threads, 2 * row4, s>>>(g2, out, W, 0.0f);
-  } else {
-    edt_row_min_kernel<COLS, false, false><<<grid, threads, row4, s>>>(g2, out, W, 0.0f);
-  }
-}
-
-// One design of the kernel by name: `cols` output columns per thread (4..8),
-// `min3` the three-input integer min, `mode` where x' comes from (0 float
-// adds, 1 the shared table, 2 immediates in chunks of 32, which implies
-// min3), `split` blocks per row.  Launches on `stream`, does not synchronise,
-// allocates nothing.  Returns cudaGetLastError() so that a refused launch is
-// seen by the caller, or cudaErrorInvalidValue for what the kernel does not
-// take (a block has at most 32 warps; the wrapper's MAX_WIDTH is below that
-// for every `cols`).
-extern "C" int edt_row_min_launch_variant(const float* g2, float* out,
-                                          long long rows, int W, void* stream,
-                                          int cols, int min3, int mode,
-                                          int split) {
-  if (rows <= 0 || W <= 0) return 0;
-  if (cols < 4 || cols > 8 || split < 1 || rows > 2147483647LL ||
-      edt_warps_per_row(W, cols) > 32 * split)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (cols) {
-    case 4: edt_launch_cols<4>(g2, out, rows, W, min3, mode, split, s); break;
-    case 5: edt_launch_cols<5>(g2, out, rows, W, min3, mode, split, s); break;
-    case 6: edt_launch_cols<6>(g2, out, rows, W, min3, mode, split, s); break;
-    case 7: edt_launch_cols<7>(g2, out, rows, W, min3, mode, split, s); break;
-    default: edt_launch_cols<8>(g2, out, rows, W, min3, mode, split, s); break;
-  }
-  return (int)cudaGetLastError();
-}
-
-// The chosen design.
+// One block per row, one warp per 32 * EDT_COLS output columns.  Launches on
+// `stream`, does not synchronise, allocates nothing.  Returns
+// cudaGetLastError() so that a refused launch is seen by the caller, or
+// cudaErrorInvalidValue for what the kernel does not take (a block has at
+// most 32 warps; the wrapper's MAX_WIDTH is below that).
 extern "C" int edt_row_min_launch(const float* g2, float* out, long long rows,
                                   int W, void* stream) {
-  return edt_row_min_launch_variant(g2, out, rows, W, stream, 5, 1, 2, 1);
+  if (rows <= 0 || W <= 0) return 0;
+  const int warps = (W + 32 * EDT_COLS - 1) / (32 * EDT_COLS);
+  if (rows > 2147483647LL || warps > 32) return (int)cudaErrorInvalidValue;
+  const size_t row32 = (size_t)((W + 31) & ~31) * sizeof(float);
+  edt_row_min_kernel<<<(unsigned int)rows, 32 * warps, row32,
+                       (cudaStream_t)stream>>>(g2, out, W, edt_offset(W));
+  return (int)cudaGetLastError();
 }

@@ -42,7 +42,7 @@ MAX_WIDTH = 2048  # the row of `a` is staged in shared memory
 # The kernel adds the constant K = Wp * max(Wp, 64) (Wp: W rounded up to 4) to
 # every candidate; its integer terms reach K + W^2 + H^2, which must stay
 # exactly representable in float32 for the result to keep the plain version's
-# bits.
+# bits.  That also needs an integer-valued g2 (see `edt_row_min`).
 EXACT_LIMIT = 2**24
 
 # Launch counts, one per kernel: a wrapper adds one where it launches its
@@ -133,9 +133,6 @@ def _edt_lib() -> ctypes.CDLL:
         ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
-    var = lib.edt_row_min_launch_variant
-    var.argtypes = fn.argtypes + [ctypes.c_int] * 4
-    var.restype = ctypes.c_int
     return lib
 
 
@@ -161,13 +158,17 @@ def edt_row_min_plain(g2: torch.Tensor, row_chunk: int = 32) -> torch.Tensor:
     return torch.sqrt(out)
 
 
-def edt_row_min(g2: torch.Tensor, variant=None) -> torch.Tensor:
+def edt_row_min(g2: torch.Tensor) -> torch.Tensor:
     """Row pass of the exact EDT for `g2 (..., H, W)`; float32 out.
 
     A CPU tensor takes the plain version.  A CUDA tensor launches the kernel
-    (built on first use) or raises.  `variant=(cols, min3, mode, split)`
-    launches another design of the kernel than the chosen one (see
-    csrc/edt_row_min.cu; tools/edt_variants.py times them).
+    (built on first use) or raises.
+
+    Precondition on the card: `g2` is what `distance_transform` gives, squared
+    column distances that are integer-valued and at most H^2, or the 1e12 of a
+    column without an edge.  Then the kernel's result has the plain version's
+    bits (the shape is checked against `EXACT_LIMIT`).  A fractional `g2` is
+    rounded to the float32 spacing at K + W^2, up to 0.5 at `MAX_WIDTH`.
     """
     if g2.device.type == "cpu":
         return edt_row_min_plain(g2)
@@ -192,15 +193,7 @@ def edt_row_min(g2: torch.Tensor, variant=None) -> torch.Tensor:
     lib = _edt_lib()
     with torch.cuda.device(g2.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if variant is None:
-            err = lib.edt_row_min_launch(
-                g2.data_ptr(), out.data_ptr(), rows, w, stream
-            )
-        else:
-            err = lib.edt_row_min_launch_variant(
-                g2.data_ptr(), out.data_ptr(), rows, w, stream,
-                *(int(v) for v in variant),
-            )
+        err = lib.edt_row_min_launch(g2.data_ptr(), out.data_ptr(), rows, w, stream)
     LAUNCHES["edt_row_min"] += 1
     if err != 0:
         raise RuntimeError(f"edt_row_min: kernel launch failed (cudaError {err})")

@@ -1,15 +1,14 @@
-"""The designs of the EDT row kernel side by side on the card.
+"""What the compiler made of the EDT row kernel, and its time on the card.
 
-    python -m cube_slam_wu_tpu_torch.tools.edt_variants [--out DIR]
+    python -m cube_slam_wu_tpu_torch.tools.edt_sass [--out DIR]
 
-Builds csrc/edt_row_min.cu with `-Xptxas -v` (registers and spills of every
-instantiation go to DIR/edt_row_min.ptxas.txt), dumps its SASS with cuobjdump
-(DIR/edt_row_min.sass) and counts, per instantiation, the instructions the
-design is about (FFMA, FMNMX, the three-input integer min, FADD, LDS).  Then
-it holds every design against the plain version (bit-equal) and times it at
-the production shapes, in two rounds over all designs so that a drift of the
-card's clock shows, and prints one JSON object per line.  Needs a CUDA
-device and nvcc.
+Builds csrc/edt_row_min.cu with `-Xptxas -v` (registers and spills go to
+DIR/edt_row_min.ptxas.txt), dumps its SASS with cuobjdump
+(DIR/edt_row_min.sass) and counts the instructions the design is about (FFMA,
+FMNMX, the three-input integer min, FADD, LDS).  Then it holds the kernel
+against the plain version (bit-equal) and times it at the production shapes,
+reads the SM clock and power draw under that load, and prints one JSON object
+per line.  Needs a CUDA device and nvcc.
 """
 
 from __future__ import annotations
@@ -19,7 +18,6 @@ import collections
 import json
 import pathlib
 import re
-import ctypes
 import shutil
 import statistics
 import subprocess
@@ -32,49 +30,19 @@ from cube_slam_wu_tpu_torch.ops import cuda_kernels
 from cube_slam_wu_tpu_torch.tools.cardtime import g2_from_rendered, nvidia_smi_line, time_ms
 
 SHAPES = ((3, 480, 640), (1, 375, 1242))
-# (cols, min3, mode, split); mode 0 = x' by float adds, 1 = from a shared
-# table, 2 = as immediates in chunks of 32; split = blocks per row
-DESIGNS = {
-    "cols4 fmnmx fadd (the first kernel's loop)": (4, 0, 0, 1),
-    "cols4 min3 fadd": (4, 1, 0, 1),
-    "cols4 min3 xtab": (4, 1, 1, 1),
-    "cols4 min3 imm": (4, 1, 2, 1),
-    "cols5 min3 fadd": (5, 1, 0, 1),
-    "cols5 min3 imm": (5, 1, 2, 1),
-    "cols6 min3 imm": (6, 1, 2, 1),
-    "cols8 fmnmx fadd": (8, 0, 0, 1),
-    "cols8 min3 fadd": (8, 1, 0, 1),
-    "cols8 min3 xtab": (8, 1, 1, 1),
-    "cols8 min3 imm": (8, 1, 2, 1),
-    "cols8 min3 imm split2": (8, 1, 2, 2),
-    "cols4 min3 imm split2": (4, 1, 2, 2),
-    "chosen": None,
-}
-# the float-add designs again with the source loop unrolled 1x and 4x (the
-# library's own setting is 2x)
-UNROLLS = (1, 4)
-UNROLL_DESIGNS = ("cols4 min3 fadd", "cols8 min3 fadd", "cols4 fmnmx fadd (the first kernel's loop)")
 COUNTED = ("FFMA", "FMNMX", "VIMNMX3", "VIMNMX", "IMNMX", "FADD", "LDS", "BRA")
 
 
-def build_verbose(out: pathlib.Path, unroll: int | None = None) -> str:
-    """Build the library with ptxas's report: where the wrapper looks for it,
-    or beside it with another unroll factor of the source loop."""
+def build_verbose(out: pathlib.Path) -> str:
+    """Build the library where the wrapper looks for it, with ptxas's report."""
     cmd = cuda_kernels.nvcc_command("edt_row_min")
     lib = pathlib.Path(cmd[-2])
-    extra = ["-Xptxas", "-v"]
-    tag = ""
-    if unroll is not None:
-        tag = f".unroll{unroll}"
-        lib = lib.with_suffix(f"{tag}.so")
-        cmd[-2] = str(lib)
-        extra.append(f"-DEDT_UNROLL={unroll}")
     lib.parent.mkdir(parents=True, exist_ok=True)
-    run = [cuda_kernels._find_nvcc(), *extra, *cmd[1:]]
+    run = [cuda_kernels._find_nvcc(), "-Xptxas", "-v", *cmd[1:]]
     done = subprocess.run(run, capture_output=True, text=True)
     if done.returncode != 0:
         raise RuntimeError(f"nvcc failed:\n{done.stdout}\n{done.stderr}")
-    (out / f"edt_row_min{tag}.ptxas.txt").write_text(done.stdout + done.stderr)
+    (out / "edt_row_min.ptxas.txt").write_text(done.stdout + done.stderr)
     return str(lib)
 
 
@@ -137,7 +105,7 @@ def main(argv=None) -> None:
     ap.add_argument("--out", default="build")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
-        raise SystemExit("edt_variants: needs a CUDA device")
+        raise SystemExit("edt_sass: needs a CUDA device")
     out = pathlib.Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
     print(json.dumps({"card": nvidia_smi_line(), "torch": torch.__version__}), flush=True)
@@ -149,41 +117,16 @@ def main(argv=None) -> None:
                       "max_spill_bytes": max([int(s) for s in spills] or [0])}), flush=True)
     print(json.dumps({"sass_counts": sass_counts(lib, out)}), flush=True)
 
-    unroll_libs = {u: build_verbose(out, unroll=u) for u in UNROLLS}
-    base_lib = cuda_kernels._edt_lib()
-
-    def with_lib(lib, fn):
-        """Run `fn` with the wrapper bound to another build of the source."""
-        cuda_kernels._libs["edt_row_min"] = lib
-        try:
-            return fn()
-        finally:
-            cuda_kernels._libs["edt_row_min"] = base_lib
-
     for k, shape in enumerate(SHAPES):
         g2 = g2_from_rendered(shape, seed=k)
-        ref = cuda_kernels.edt_row_min_plain(g2)
-
-        def check_and_time(name, variant):
-            got = cuda_kernels.edt_row_min(g2, variant=variant)
-            torch.cuda.synchronize()
-            if not torch.equal(got, ref):
-                raise RuntimeError(f"{name} != plain at {shape}")
-            return time_ms(lambda: cuda_kernels.edt_row_min(g2, variant=variant))
-
-        rounds = []
-        for _ in range(2):
-            row = {name: check_and_time(name, v) for name, v in DESIGNS.items()}
-            for u, path in unroll_libs.items():
-                lib = ctypes.CDLL(path)
-                for name in UNROLL_DESIGNS:
-                    row[f"{name} unroll{u}"] = with_lib(
-                        lib, lambda: check_and_time(name, DESIGNS[name])
-                    )
-            rounds.append(row)
+        got = cuda_kernels.edt_row_min(g2)
+        torch.cuda.synchronize()
+        if not torch.equal(got, cuda_kernels.edt_row_min_plain(g2)):
+            raise RuntimeError(f"edt_row_min != plain at {shape}")
+        ms = [time_ms(lambda: cuda_kernels.edt_row_min(g2)) for _ in range(2)]
         clock = sm_clock_under_load(lambda: cuda_kernels.edt_row_min(g2))
-        print(json.dumps({"shape": list(shape), "bit_equal": True, "ms_round_1": rounds[0],
-                          "ms_round_2": rounds[1], "chosen_under_load": clock}), flush=True)
+        print(json.dumps({"shape": list(shape), "bit_equal": True, "ms": ms,
+                          "under_load": clock}), flush=True)
 
 
 if __name__ == "__main__":
