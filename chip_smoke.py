@@ -7,8 +7,11 @@ Builds the port's CUDA kernels from the sources in this checkout, holds each
 against its plain PyTorch version on the card, drives the fused online SLAM
 step over a synthetic 480x640 sequence through the entry point a user would
 call — once re-optimising the full graph every frame (`main_path`), once as
-the fixed-lag smoother with a window of 16 frames (`windowed_path`) — checks
-the results, and prints one JSON object per phase.  The last line is
+the fixed-lag smoother with a window of 16 frames (`windowed_path`) — then
+the KITTI driver (`kitti_path`: `run_kitti_frames`, the `cli kitti
+--pose-feedback --point-weight 0.3` configuration) over a synthetic 375x1242
+drive with six objects, checks the results, and prints one JSON object per
+phase.  The last line is
 `{"ok": true, "device": {...}}`.  Any failing phase ends the script with a
 non-zero exit code; without a CUDA device it exits 1 and prints no result.
 Imports nothing of JAX.
@@ -17,8 +20,10 @@ Imports nothing of JAX.
 from __future__ import annotations
 
 import json
+import multiprocessing
 import sys
 import time
+from concurrent.futures import ProcessPoolExecutor
 
 import numpy as np
 import torch
@@ -29,6 +34,8 @@ if not torch.cuda.is_available():
 
 from cube_slam_wu_tpu_torch.ops import cuda_kernels  # noqa: E402
 from cube_slam_wu_tpu_torch.slam.online import run_online_frames, sequence_frames  # noqa: E402
+from cube_slam_wu_tpu_torch.slam.pipeline import run_kitti_frames  # noqa: E402
+from cube_slam_wu_tpu_torch.utils import hostsync  # noqa: E402
 from cube_slam_wu_tpu_torch.tools.cardtime import (  # noqa: E402
     g2_from_random, g2_from_rendered, nvidia_smi_line, time_ms,
 )
@@ -57,6 +64,9 @@ WINDOW = 16
 ATE_REFERENCE_M = 2.1056
 ATE_WINDOW_REFERENCE_M = 1.9855
 CPU_AGREE_M = 1e-3
+# The CPU side of the card-against-CPU drives runs in a child process while
+# the card does its reruns; it takes this many of the host's threads.
+CPU_THREADS = 6
 # The two bit-equality runs of each path are cut short (the measured runs are
 # not); the windowed ones still absorb departing frames (20 > WINDOW).
 SECOND_RUN_FRAMES = {"main_path": 12, "windowed_path": 20}
@@ -72,7 +82,55 @@ SMALL = dict(capacity=12, window=4, n_frames=8)
 SMALL_F64_SIZE = (240, 320)
 CPU_AGREE_F64_M = 1e-6
 
-KERNEL_SHAPES = ((3, 480, 640), (1, 375, 1242), (2, 97, 131), (1, 40, cuda_kernels.MAX_WIDTH))
+# The KITTI path: the world of artifacts/kitti_synth_300 at KITTI's frame
+# size, the driver at the `cli kitti --pose-feedback --point-weight 0.3`
+# configuration (window 16, 96 point slots, 8 object slots, 4 detections per
+# frame).  Frames 16-39 each absorb a departing frame.
+KITTI_WORLD = dict(n_frames=40, n_objects=6, size=(375, 1242), speed=0.5, curve=0.002,
+                   noise_px=0.8, dropout=0.05, seed=4, ground_texture=4.0)
+KITTI_SETTINGS = dict(pose_feedback=True, window=16, point_weight=0.3, n_points=96,
+                      max_objects=8, max_detections=4)
+# ATE bound, fixed before the path first ran on a card: the JAX package on
+# the CPU on this very world reads 0.74959 m in float32 and 0.26776 m in
+# float64 (tests/reference_ate_jax_kitti.py 40 f32|f64); a single draw of this
+# monocular benchmark moves by their gap (0.48183 m) under a numeric
+# perturbation, so the bound is the float32 figure plus the larger of 10 % of
+# it and that gap.
+ATE_KITTI_JAX_F32_M, ATE_KITTI_JAX_F64_M = 0.74959, 0.26776
+ATE_KITTI_BOUND_M = ATE_KITTI_JAX_F32_M + max(
+    0.1 * ATE_KITTI_JAX_F32_M, abs(ATE_KITTI_JAX_F32_M - ATE_KITTI_JAX_F64_M)
+)
+KITTI_RERUN_FRAMES = 20  # the bit-equality reruns, still past the window
+# The card against the CPU, one drive per line: (world, frames, dtype, limit
+# on the trajectory in m, settings over KITTI_SETTINGS).  The points mode in
+# float32 over the first 8 frames of the world above at window 4 (graph
+# capacity 8), and in float64 on that world at 240x320; the two other modes
+# (interleaved with the LBD line-track weight, and the two-phase schedule)
+# over 12 frames of it at 240x320 in float64.  Every drive starts from its
+# world's first pose tilted by 0.4 deg roll and 0.7 deg pitch, as the CPU
+# parity tests do (tests/kitti_parity.py): at an exactly level camera the
+# vertical vanishing point is at infinity, where the proposal engine's
+# support-edge choice is a tie in the reference's own formulas that rounding
+# decides (ROADMAP queue 3 entry 2); untilted, this script read 0.098 m
+# (lines) and 0.0097 m (two-phase) between card and CPU.  The line detector
+# runs in float32 in every dtype, as in the JAX package, and its float32
+# rounding differs between card and CPU; through the proposals that reaches
+# the float64 drives of the two modes that take no point tracks at a few
+# 1e-6 m (PERF.md), hence their 1e-5 m limit (the limit of the float64 parity
+# tests against JAX, tests/kitti_parity.py, for the same float32 front end).
+KITTI_SMALL_WORLD = dict(KITTI_WORLD, n_frames=12, size=(240, 320))
+KITTI_CMP = {
+    "points_float32_full_size": (KITTI_WORLD, 8, "float32", CPU_AGREE_M, dict(window=4)),
+    "points_float64_240x320": (KITTI_SMALL_WORLD, 8, "float64", CPU_AGREE_F64_M, dict(window=4)),
+    "lines_float64_240x320": (KITTI_SMALL_WORLD, 12, "float64", 1e-5,
+                              dict(window=4, point_weight=0.0)),
+    "two_phase_float64_240x320": (KITTI_SMALL_WORLD, 12, "float64", 1e-5,
+                                  dict(window=4, point_weight=0.0, pose_feedback=False)),
+}
+KITTI_TILT_DEG = (0.4, 0.7)  # roll, pitch
+
+KERNEL_SHAPES = ((3, 480, 640), (1, 375, 1242), (4, 375, 1242), (2, 97, 131),
+                 (1, 40, cuda_kernels.MAX_WIDTH))
 # Directory of the JAX package that holds the TPU kernels (named in the
 # report only; nothing of it is imported).
 TPU_PACKAGE_DIR = "cube_slam_wu_" "tpu"
@@ -129,6 +187,20 @@ def run_path(seq, n, device, window=None, capacity=CAPACITY, on_frame=None, dtyp
     )
 
 
+def path_cpu_drives(window):
+    """The CPU side of a path's card-against-CPU drives (run in a child
+    process): the first 4 frames of the full graph, or the short fixed-lag
+    drives in float32 at the full size and in float64 at 240x320."""
+    torch.set_num_threads(CPU_THREADS)
+    seq = synth.make_sequence(n_frames=N_FRAMES, size=SIZE, n_objects=N_OBJECTS, seed=SEED)
+    if window is None:
+        return (run_path(seq, 4, "cpu"),)
+    n = SMALL["n_frames"]
+    kw = dict(window=SMALL["window"], capacity=SMALL["capacity"])
+    small = synth.make_sequence(n_frames=n, size=SMALL_F64_SIZE, n_objects=N_OBJECTS, seed=SEED)
+    return run_path(seq, n, "cpu", **kw), run_path(small, n, "cpu", dtype=torch.float64, **kw)
+
+
 def phase_path(name, seq, window, ate_reference_m, t_start):
     """Drive one path over the sequence on the card through the entry point,
     with the launch counts set to 0 just before and read just after; check the
@@ -176,42 +248,46 @@ def phase_path(name, seq, window, ate_reference_m, t_start):
     if not ate < ate_bound:
         raise RuntimeError(f"{name}: ATE {ate} m above the bound {ate_bound} m")
 
-    # the same drive twice on the card must give the same bits (the Hough vote
-    # and every selection are deterministic).  These reruns are cut short: they
-    # are held against each other in every output, and against the measured
-    # run in the per-frame chi2
-    k = SECOND_RUN_FRAMES[name]
-    again = [run_path(seq, k, "cuda", window) for _ in range(2)]
-    for what in ("traj_Twc_xyzq", "cubes_minimal", "cube_valid", "chi2", "prior_valid"):
-        a, b = (getattr(r, what) for r in again)
-        if not ((a is None and b is None) or np.array_equal(a, b)):
-            raise RuntimeError(f"{name}: two runs on the card differ in {what}")
-    if again[0].report != again[1].report:
-        raise RuntimeError(f"{name}: two runs on the card differ in their counters")
-    if not np.array_equal(res.chi2[:k], again[0].chi2):
-        diff = float(np.abs(res.chi2[:k] - again[0].chi2).max())
-        raise RuntimeError(f"{name}: two runs on the card differ (chi2 by up to {diff})")
+    # the CPU side of the card-against-CPU drives runs in a child process
+    # while the card does the reruns and its side of those drives
+    with ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn")) as pool:
+        cpu_runs = pool.submit(path_cpu_drives, window)
 
-    # card against CPU (asked for by name: not a fallback)
+        # the same drive twice on the card must give the same bits (the Hough
+        # vote and every selection are deterministic).  These reruns are cut
+        # short: they are held against each other in every output, and
+        # against the measured run in the per-frame chi2
+        k = SECOND_RUN_FRAMES[name]
+        again = [run_path(seq, k, "cuda", window) for _ in range(2)]
+        for what in ("traj_Twc_xyzq", "cubes_minimal", "cube_valid", "chi2", "prior_valid"):
+            a, b = (getattr(r, what) for r in again)
+            if not ((a is None and b is None) or np.array_equal(a, b)):
+                raise RuntimeError(f"{name}: two runs on the card differ in {what}")
+        if again[0].report != again[1].report:
+            raise RuntimeError(f"{name}: two runs on the card differ in their counters")
+        if not np.array_equal(res.chi2[:k], again[0].chi2):
+            diff = float(np.abs(res.chi2[:k] - again[0].chi2).max())
+            raise RuntimeError(f"{name}: two runs on the card differ (chi2 by up to {diff})")
+
+        # card against CPU (asked for by name: not a fallback)
+        if window is not None:
+            n = SMALL["n_frames"]
+            kw = dict(window=SMALL["window"], capacity=SMALL["capacity"])
+            card = run_path(seq, n, "cuda", **kw)
+            small = synth.make_sequence(n_frames=n, size=SMALL_F64_SIZE, n_objects=N_OBJECTS, seed=SEED)
+            card64 = run_path(small, n, "cuda", dtype=torch.float64, **kw)
+        cpu = cpu_runs.result()
+
     extra = {}
     if window is None:
-        cpu = run_path(seq, 4, "cpu")
-        cpu_diff = float(np.abs(cpu.traj_Twc_xyzq[:4, :3] - short.traj_Twc_xyzq[:4, :3]).max())
+        cpu_diff = float(np.abs(cpu[0].traj_Twc_xyzq[:4, :3] - short.traj_Twc_xyzq[:4, :3]).max())
         cpu_what = "first 4 frames"
     else:
-        n = SMALL["n_frames"]
-        kw = dict(window=SMALL["window"], capacity=SMALL["capacity"])
-        card = run_path(seq, n, "cuda", **kw)
-        cpu = run_path(seq, n, "cpu", **kw)
+        cpu, cpu64 = cpu
         if not (card.prior_valid.any() and cpu.prior_valid.any()):
             raise RuntimeError(f"{name}: the short drive did not absorb")
         cpu_diff = float(np.abs(cpu.traj_Twc_xyzq[:n, :3] - card.traj_Twc_xyzq[:n, :3]).max())
         cpu_what = f"first {n} frames, capacity {SMALL['capacity']}, window {SMALL['window']}"
-        small = synth.make_sequence(
-            n_frames=n, size=SMALL_F64_SIZE, n_objects=N_OBJECTS, seed=SEED
-        )
-        card64 = run_path(small, n, "cuda", dtype=torch.float64, **kw)
-        cpu64 = run_path(small, n, "cpu", dtype=torch.float64, **kw)
         extra["cpu_vs_card_float64_240x320_m"] = float(
             np.abs(cpu64.traj_Twc_xyzq[:n, :3] - card64.traj_Twc_xyzq[:n, :3]).max()
         )
@@ -232,6 +308,152 @@ def phase_path(name, seq, window, ate_reference_m, t_start):
           "chi2_last": float(res.chi2[-1]),
           "cpu_vs_card_m": cpu_diff, "cpu_vs_card_over": cpu_what, **extra,
           "second_run_frames": k, "second_run_bit_equal": True,
+          "launches": launches, "frames_with_detections": frames_with_det,
+          "seconds_total": time.perf_counter() - t_start})
+    return launches
+
+
+def kitti_frames(seq, n):
+    """The world's first n frames as `run_kitti_frames` takes them, with the
+    detection rows rounded as the KITTI layout's txt files hold them."""
+    rows = lambda d: np.array([float(f"{v:.3f}") for v in np.ravel(d)]).reshape(-1, 5)
+    return [(seq.images[i], rows(seq.detections[i])) for i in range(n)]
+
+
+def run_kitti(seq, n, device, dtype=torch.float32, on_frame=None, **overrides):
+    kw = dict(KITTI_SETTINGS, **overrides)
+    return run_kitti_frames(kitti_frames(seq, n), seq.K, seq.T_wc[0], n_frames=n,
+                            dtype=dtype, device=device, on_frame=on_frame, **kw)
+
+
+def tilt(T, roll_deg, pitch_deg):
+    """Pose(s) T with the camera turned by `roll_deg` about its optical axis
+    and `pitch_deg` about its x axis (the images stay as they are)."""
+    r, p = np.radians(roll_deg), np.radians(pitch_deg)
+    Rx = np.array([[1, 0, 0], [0, np.cos(p), -np.sin(p)], [0, np.sin(p), np.cos(p)]])
+    Rz = np.array([[np.cos(r), -np.sin(r), 0], [np.sin(r), np.cos(r), 0], [0, 0, 1]])
+    out = np.array(T, dtype=np.float64)
+    out[..., :3, :3] = out[..., :3, :3] @ Rx @ Rz
+    return out
+
+
+def kitti_drive(name, device):
+    """One drive of KITTI_CMP on `device`."""
+    world, m, dtype, _, kw = KITTI_CMP[name]
+    seq = synth.make_sequence(**world)
+    seq = seq._replace(T_wc=tilt(seq.T_wc, *KITTI_TILT_DEG))
+    return run_kitti(seq, m, device, dtype=getattr(torch, dtype), **kw)
+
+
+def kitti_cpu_drives():
+    """Every drive of KITTI_CMP on the CPU (run in a child process)."""
+    torch.set_num_threads(CPU_THREADS)
+    return {name: kitti_drive(name, "cpu") for name in KITTI_CMP}
+
+
+def phase_kitti(t_start):
+    """Drive the KITTI driver on the card (device=None) over the 40-frame
+    375x1242 world with the launch counts set to 0 just before and read just
+    after; check the result; return the phase's line and the launch counts."""
+    seq = synth.make_sequence(**KITTI_WORLD)
+    n = KITTI_WORLD["n_frames"]
+    W = KITTI_SETTINGS["window"]
+    frames_with_det = sum(1 for d in seq.detections if len(d) > 0)
+    # warm-up on the card (the points mode needs more frames than its window)
+    run_kitti(seq, 6, None, window=4)
+    torch.cuda.synchronize()
+
+    clock = {}
+
+    def on_frame(i):
+        if i == 2:  # three frames of warm-up
+            torch.cuda.synchronize()
+            clock["t0"] = time.perf_counter()
+            clock["sync0"] = hostsync.snapshot()
+
+    cuda_kernels.reset_launch_counts()
+    res = run_kitti(seq, n, None, on_frame=on_frame)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    sync1 = hostsync.snapshot()
+    launches = dict(cuda_kernels.LAUNCHES)
+    per = n - 3
+    ms_per_frame = (t1 - clock["t0"]) * 1e3 / per
+    syncs = {k: (sync1[k] - clock["sync0"][k]) / per for k in sync1}
+
+    traj = res.traj_Twc_xyzq
+    for what, a in (("trajectory", traj), ("cuboids", res.cubes_minimal), ("points", res.points)):
+        if not np.isfinite(a).all():
+            raise RuntimeError(f"kitti_path: {what} not finite")
+    if traj.shape != (n, 7) or res.cubes_minimal.shape != (KITTI_SETTINGS["max_objects"], 9):
+        raise RuntimeError("kitti_path: unexpected output shapes")
+    if launches["edt_row_min"] < frames_with_det:
+        raise RuntimeError(f"kitti_path: edt_row_min launched {launches['edt_row_min']} times "
+                           f"for {frames_with_det} frames with detections")
+    if not res.cube_valid.any():
+        raise RuntimeError("kitti_path: no confirmed landmark")
+    if not res.point_valid.any():
+        raise RuntimeError("kitti_path: no valid point landmark at the end")
+    # every confirmed landmark first seen in a frame that has left the window
+    # is in the prior (its first measurement was absorbed)
+    seen = np.any(res.cube_history != 0.0, axis=-1)  # (N, O)
+    first_seen = np.where(seen.any(axis=0), seen.argmax(axis=0), n)
+    departed = res.cube_valid & (first_seen <= n - 1 - W)
+    if not departed.any() or not res.prior_valid[departed].all():
+        raise RuntimeError(f"kitti_path: landmarks {np.nonzero(departed)[0].tolist()} "
+                           f"not all in the prior: {res.prior_valid.tolist()}")
+    ate = ate_rmse(traj[:, :3], seq.T_wc[:n, :3, 3])
+    if not ate < ATE_KITTI_BOUND_M:
+        raise RuntimeError(f"kitti_path: ATE {ate} m above the bound {ATE_KITTI_BOUND_M} m")
+
+    # the CPU side of the card-against-CPU drives, in a child process, while
+    # the card does the reruns and its side of those drives
+    with ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn")) as pool:
+        cpu_runs = pool.submit(kitti_cpu_drives)
+
+        # two shortened reruns on the card: bit-equal to each other in every
+        # output, and to the measured run in per-frame chi2
+        k = KITTI_RERUN_FRAMES
+        again = [run_kitti(seq, k, "cuda") for _ in range(2)]
+        for what in ("traj_Twc_xyzq", "cubes_minimal", "cube_valid", "chi2", "cube_history",
+                     "prior_valid", "points", "point_valid"):
+            a, b = (getattr(r, what) for r in again)
+            if not np.array_equal(a, b):
+                raise RuntimeError(f"kitti_path: two runs on the card differ in {what}")
+        if again[0].frontend_report != again[1].frontend_report:
+            raise RuntimeError("kitti_path: two runs on the card differ in their counters")
+        if not np.array_equal(res.chi2[:k], again[0].chi2):
+            diff = float(np.abs(res.chi2[:k] - again[0].chi2).max())
+            raise RuntimeError(f"kitti_path: the rerun differs from the measured run (chi2 by {diff})")
+        card_runs = {name: kitti_drive(name, "cuda") for name in KITTI_CMP}
+        cpu_runs.result()
+
+    # the card against the CPU (asked for by name: not a fallback)
+    cmp, per_frame, failed = {}, {}, []
+    for name, (_, m, _, limit, _) in KITTI_CMP.items():
+        card, cpu = card_runs[name], cpu_runs.result()[name]
+        diff = np.abs(card.traj_Twc_xyzq[:m, :3] - cpu.traj_Twc_xyzq[:m, :3]).max(axis=1)
+        cmp[name + "_m"] = float(diff.max())
+        per_frame[name] = diff.tolist()
+        if not (diff.max() < limit and card.frontend_report == cpu.frontend_report
+                and np.array_equal(card.cube_valid, cpu.cube_valid)):
+            failed.append(name)
+    if failed:
+        raise RuntimeError(f"kitti_path: card and CPU differ in {failed} (trajectory, counters "
+                           f"or landmark validity): {cmp}; per frame (m): {per_frame}")
+
+    emit({"phase": "kitti_path", "n_frames": n, "size": list(KITTI_WORLD["size"]),
+          "settings": KITTI_SETTINGS, "ms_per_frame": ms_per_frame,
+          "syncs_per_frame": syncs["syncs"], "bytes_up_per_frame": syncs["h2d_bytes"],
+          "bytes_down_per_frame": syncs["d2h_bytes"],
+          "ate_m": ate, "ate_bound_m": ATE_KITTI_BOUND_M,
+          "ate_jax_cpu_f32_m": ATE_KITTI_JAX_F32_M, "ate_jax_cpu_f64_m": ATE_KITTI_JAX_F64_M,
+          "report": res.frontend_report.counters(), "cube_valid": res.cube_valid.tolist(),
+          "prior_valid": res.prior_valid.tolist(), "points_valid": int(res.point_valid.sum()),
+          "chi2_last": float(res.chi2[-1]), "cpu_vs_card_m": cmp,
+          "cpu_vs_card_limit_m": {k + "_m": v[3] for k, v in KITTI_CMP.items()},
+          "cpu_vs_card_tilt_deg": KITTI_TILT_DEG,
+          "rerun_frames": k, "rerun_bit_equal": True,
           "launches": launches, "frames_with_detections": frames_with_det,
           "seconds_total": time.perf_counter() - t_start})
     return launches
@@ -259,19 +481,23 @@ def main() -> int:
     seq = synth.make_sequence(n_frames=N_FRAMES, size=SIZE, n_objects=N_OBJECTS, seed=SEED)
     launches_main = phase_path("main_path", seq, None, ATE_REFERENCE_M, t_start)
     launches_win = phase_path("windowed_path", seq, WINDOW, ATE_WINDOW_REFERENCE_M, t_start)
+    launches_kitti = phase_kitti(t_start)
 
     main_shape = per_shape[0]
     emit({"kernels": [{
         "name": "edt_row_min", "route": "cuda",
         "source": "cube_slam_wu_tpu_torch/csrc/edt_row_min.cu",
         "replaces": TPU_PACKAGE_DIR + "/ops/pallas_kernels.py:71",
-        "launches": launches_main["edt_row_min"] + launches_win["edt_row_min"],
+        "launches": (launches_main["edt_row_min"] + launches_win["edt_row_min"]
+                     + launches_kitti["edt_row_min"]),
         "launches_by_path": {"main_path": launches_main["edt_row_min"],
-                             "windowed_path": launches_win["edt_row_min"]},
+                             "windowed_path": launches_win["edt_row_min"],
+                             "kitti_path": launches_kitti["edt_row_min"]},
         "max_abs_err": worst_err,
         "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
         "bound_ms": main_shape["bound_ms"], "bound_by": main_shape["bound_by"],
         "library_ms": None, "shape": main_shape["shape"],
+        "by_shape": per_shape,
     }]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

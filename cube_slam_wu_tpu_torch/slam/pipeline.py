@@ -1,0 +1,1122 @@
+"""The KITTI driver: multi-object online SLAM over a moving camera.
+
+Per frame: line detection -> batched cuboid proposals for every 2D detection
+-> IoU tracklet association into fixed object slots (with range and 3D gates)
+-> the tracker's BA step.  Three modes, as in the JAX package's
+`run_kitti_slam`:
+
+- the two-phase schedule (`pose_feedback=False`, the reference's): a
+  front-end pass over all frames with the proposals at the first camera pose
+  (`run_online_frontend`), then one `tracker.run_incremental` pass;
+- interleaved (`pose_feedback=True`): each frame's proposal grid runs at the
+  tracker's constant-velocity predicted pose, and the BA step runs right
+  after it (`_run_kitti_tracked`), with frame-to-frame LBD line tracking
+  weighting the measurements (auto: on when there are no points);
+- interleaved with point landmarks (`point_weight > 0`): Harris + ZNCC
+  tracks (slam.features.IncrementalTracker) in the windowed joint
+  camera + cuboid + point BA (tracker.make_windowed_point_step).
+
+`run_kitti_frames` is the driver over frames in memory; `run_kitti_slam`
+reads the KITTI odometry layout (Pillow decodes the images) and calls it.
+The association policy and the tracklet book live on the host, as in the
+JAX package; the device work of a frame comes back in a few counted reads
+(utils.hostsync): one for the feature tracker's result, one for the
+proposals (with the line-track match flags), one for the BA step's outputs
+and the next frame's pose and gate caches, plus the flags the detector and
+the proposal engine read while they run.  The stages carry
+`torch.profiler.record_function` labels (`kitti/...`) for
+tools/profile_step.py.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import pathlib
+from typing import NamedTuple
+
+import numpy as np
+import torch
+from torch.profiler import record_function
+
+from cube_slam_wu_tpu_torch import resolve_device
+from cube_slam_wu_tpu_torch.core import rotations as rotu
+from cube_slam_wu_tpu_torch.core.cuboid import Cuboid
+from cube_slam_wu_tpu_torch.core.se3 import SE3
+from cube_slam_wu_tpu_torch.slam import tracker
+from cube_slam_wu_tpu_torch.utils import hostsync
+from cube_slam_wu_tpu_torch.utils import io as uio
+from cube_slam_wu_tpu_torch.utils import kitti as ukitti
+
+
+class FrontendReport(NamedTuple):
+    """Per-run accounting of skipped/failed frames: pipeline-level failures
+    are surfaced instead of silently continued."""
+
+    n_frames: int
+    missing_image: list
+    missing_detections: list
+    empty_detections: list
+    no_valid_proposal: list
+    dropped_detections: int  # valid detections with no free object slot
+    far_spawns: int = 0  # new-object spawns skipped by spawn_range_m
+    # frames where a binding ProposalConfig.dist_gather_cap shed valid
+    # hypotheses; each such frame is recomputed with the exact full gather
+    # (cap_fallbacks counts the reruns)
+    cap_overflow_frames: int = 0
+    cap_fallbacks: int = 0
+
+    def summary(self) -> str:
+        return (
+            f"frames={self.n_frames} missing_img={len(self.missing_image)} "
+            f"missing_det={len(self.missing_detections)} "
+            f"empty_det={len(self.empty_detections)} "
+            f"no_proposal={len(self.no_valid_proposal)} "
+            f"dropped_det={self.dropped_detections} "
+            f"far_spawns={self.far_spawns} "
+            f"cap_overflow={self.cap_overflow_frames}"
+        )
+
+    def counters(self) -> dict:
+        """Every counter as a plain int (lists by their length)."""
+        return {
+            k: (len(v) if isinstance(v, list) else int(v)) for k, v in self._asdict().items()
+        }
+
+
+class SlamOutput(NamedTuple):
+    traj_Twc_xyzq: np.ndarray  # (N, 7) x y z qx qy qz qw
+    cube_minimal: np.ndarray  # (9,) final cuboid [xyz rpy lwh] (object 0)
+    chi2: np.ndarray  # (N,) per-frame final chi2
+    timestamps: np.ndarray
+    cube_history: np.ndarray | None = None  # (N, O, 9) per-frame optimized
+    cubes_minimal: np.ndarray | None = None  # (O, 9) all object landmarks
+    cube_valid: np.ndarray | None = None  # (O,) landmark initialised
+    frontend_report: "FrontendReport | None" = None
+    # the windowed paths' landmark prior and the point landmarks at the end
+    # (None where the mode has none)
+    prior_valid: np.ndarray | None = None  # (O,)
+    points: np.ndarray | None = None  # (P, 3)
+    point_valid: np.ndarray | None = None  # (P,)
+
+
+class _HostProposals(NamedTuple):
+    """The fields of a frame's ProposalResult the host policy reads."""
+
+    valid: np.ndarray
+    pos: np.ndarray
+    rotY: np.ndarray
+    scale: np.ndarray
+    normalized_error: np.ndarray
+    camera_roll_delta: np.ndarray
+    camera_pitch_delta: np.ndarray
+    cap_overflow: np.ndarray
+
+
+def _pull_proposals(res, extra=()):
+    """One counted read: the proposal fields the host needs, plus `extra`
+    device tensors.  Returns (_HostProposals, extra as numpy)."""
+    fields = tuple(getattr(res, f) for f in _HostProposals._fields)
+    host = hostsync.pull(fields + tuple(extra))
+    return _HostProposals(*host[: len(fields)]), host[len(fields):]
+
+
+def _exact_gather_fallback(res, report, recompute):
+    """dist_gather_cap safety net: if the compacted chamfer gather shed valid
+    hypotheses this frame (res.cap_overflow > 0 for any detection), recompute
+    with the caps disabled (the exact full gather), so a binding cap can
+    never silently change a ranking.  `res` is on the host already."""
+    if int(np.sum(np.asarray(res.cap_overflow))) == 0:
+        return res, report
+    report = report._replace(
+        cap_overflow_frames=report.cap_overflow_frames + 1,
+        cap_fallbacks=report.cap_fallbacks + 1,
+    )
+    return recompute(), report
+
+
+def _caps_off(cfg):
+    return dataclasses.replace(cfg, dist_gather_cap=0, dist_gather_cap2=0, merge_cap=0)
+
+
+def _associate_local(book, boxes_c, det_valid, min_iou):
+    """The (O x D) IoU association on the host's CPU: microseconds of work
+    next to the host-side book, no device round trip."""
+    from cube_slam_wu_tpu_torch.ops.association import associate_detections
+
+    f64 = torch.float64
+    out = associate_detections(
+        torch.as_tensor(np.asarray(book.bbox), dtype=f64),
+        torch.as_tensor(np.asarray(book.alive)),
+        torch.as_tensor(np.asarray(boxes_c), dtype=f64),
+        torch.as_tensor(np.asarray(det_valid)),
+        min_iou=min_iou,
+    )
+    return tuple(np.array(v.numpy()) for v in out)
+
+
+def _se3_inv_mat(T: np.ndarray) -> np.ndarray:
+    """Exact inverse of a rigid 4x4 (R^T, -R^T t) on the host."""
+    out = np.eye(4)
+    R = T[:3, :3]
+    out[:3, :3] = R.T
+    out[:3, 3] = -R.T @ T[:3, 3]
+    return out
+
+
+def _assemble_frame(meas9, quality, has, bbox, w, device, dtype) -> tracker.FrameInput:
+    """The frame's measurements as a FrameInput on the device (host arrays
+    pushed once each)."""
+    has_t = hostsync.push(np.asarray(has, bool), device)
+    quality_t = hostsync.push(np.asarray(quality, np.float64), device, dtype)
+    w_t = torch.full_like(quality_t, float(w))
+    return tracker.FrameInput(
+        meas=Cuboid.from_minimal(hostsync.push(np.asarray(meas9, np.float64), device, dtype)),
+        quality=quality_t,
+        has_meas=has_t,
+        active=torch.ones((), dtype=torch.bool, device=device),
+        bbox=hostsync.push(np.asarray(bbox, np.float64), device, dtype),
+        bbox_weight=torch.where(has_t, w_t, torch.zeros_like(w_t)),
+    )
+
+
+def _post_step_state(g, i: int):
+    """Everything the next frame's host-side prediction and association gate
+    need, as device tensors to be pulled with the step's outputs."""
+    return (
+        g.cam_Tcw[i].matrix(),
+        g.cam_Tcw[max(i - 1, 0)].matrix(),
+        g.cube.pose.trans,
+        g.cube_valid,
+    )
+
+
+class _TrackletBook:
+    """Host-side tracklet slots shared by both KITTI loops: per-slot last-box
+    / liveness / association bookkeeping.  Association *policy* (IoU
+    matching, depth gates, spawn gates) stays in the drivers.  Slots are
+    never reused once retired — a retired slot's landmark estimate belongs to
+    the old object."""
+
+    _KEYS = (
+        "track_bbox", "track_alive", "track_used", "track_last",
+        "track_range", "track_yaw", "meas_count",
+    )
+
+    def __init__(self, n_slots: int):
+        self.bbox = np.zeros((n_slots, 4))  # last associated box (corners)
+        self.alive = np.zeros(n_slots, bool)  # currently matchable
+        self.used = np.zeros(n_slots, bool)  # ever spawned
+        self.last = np.full(n_slots, -1)  # frame of last association
+        self.range = np.full(n_slots, -1.0)  # last camera-relative range
+        self.yaw = np.full(n_slots, np.nan)  # last accepted yaw
+        self.count = np.zeros(n_slots, np.int64)  # accepted measurements
+
+    def _arrays(self):
+        return (self.bbox, self.alive, self.used, self.last, self.range,
+                self.yaw, self.count)
+
+    def retire_stale(self, i: int, max_age: int | None) -> None:
+        """Stop matching tracks not associated for > max_age frames (a stale
+        box left where an object exited otherwise captures the next object
+        entering near that image position)."""
+        if max_age is not None:
+            self.alive[self.alive & (i - self.last > max_age)] = False
+
+    def spawn(self) -> int | None:
+        """Claim the first never-used slot; None when all are taken."""
+        free = np.nonzero(~self.used)[0]
+        if free.size == 0:
+            return None
+        o = int(free[0])
+        self.alive[o] = True
+        self.used[o] = True
+        return o
+
+    def accept(self, o: int, i: int, box, rng: float, yaw: float) -> None:
+        self.bbox[o] = box
+        self.last[o] = i
+        self.range[o] = rng
+        self.yaw[o] = yaw
+        self.count[o] += 1
+
+    def state(self) -> dict:
+        return dict(zip(self._KEYS, self._arrays()))
+
+    def load_state(self, data) -> None:
+        for key, arr in zip(self._KEYS, self._arrays()):
+            if key in data:  # older checkpoints lack some keys
+                arr[:] = data[key]
+
+
+def _proposal_measurement(res, d: int, roll, pitch, yaw, cam_t, dtype, canonicalize_yaw=True):
+    """Ground-frame proposal row `d` -> (camera-frame 9-DoF measurement, fit
+    quality, camera-relative range), computed on the host's CPU in `dtype`.
+    Mirrors the reference's measurement assembly (main_obj.cpp:649-675;
+    quality :732).
+
+    Canonicalizes the front face: rotates yaw by the multiple of 90 deg that
+    brings it nearest the facing-the-camera init (camera_yaw - 90,
+    box_proposal_detail.cpp:180), swapping l/w on odd multiples.  The camera
+    pose used for the transform carries the proposal's sampled roll/pitch
+    deltas (main_obj.cpp:667-675)."""
+    yaw_init = yaw - np.pi / 2
+    rot_y = float(res.rotY[d])
+    k = int(np.round((rot_y - yaw_init) / (np.pi / 2))) if canonicalize_yaw else 0
+    yaw_c = rot_y - k * (np.pi / 2)
+    s = res.scale[d]
+    sl, sw = (float(s[1]), float(s[0])) if k % 2 else (float(s[0]), float(s[1]))
+    t = lambda v: torch.as_tensor(v, dtype=torch.float64).to(dtype)
+    cube_ground = Cuboid.from_minimal(
+        t([*(float(v) for v in res.pos[d]), 0.0, 0.0, yaw_c, sl, sw, float(s[2])])
+    )
+    R_new = rotu.euler_zyx_to_rot(
+        t(roll + float(res.camera_roll_delta[d])),
+        t(pitch + float(res.camera_pitch_delta[d])),
+        t(yaw),
+    )
+    pose_used = SE3.from_rot_trans(R_new, t(np.asarray(cam_t, np.float64)))
+    local = cube_ground.transform_to(pose_used)
+    quality = (1.0 - float(res.normalized_error[d]) + 0.5) / 2.0
+    rng = float(np.linalg.norm(np.asarray(res.pos[d], np.float64) - np.asarray(cam_t)))
+    return local.to_minimal().to(torch.float64).numpy(), quality, rng
+
+
+def _line_track_quality(boxes_c, d, lmask, mids, line_matched):
+    """Fraction of the detection ROI's lines with a frame-to-frame
+    descriptor match: unstable line sets imply an unstable proposal."""
+    x0b, y0b, x1b, y1b = boxes_c[d]
+    mx, my = (x0b + x1b) / 2, (y0b + y1b) / 2
+    hw = (x1b - x0b) * 0.6 + 10
+    hh = (y1b - y0b) * 0.6 + 10
+    roi = lmask & (np.abs(mids[:, 0] - mx) < hw) & (np.abs(mids[:, 1] - my) < hh)
+    return float(line_matched[roi].mean()) if roi.any() else 0.0
+
+
+def _spawn_and_measure(book, report, res, boxes_c, det_of_track, matched, det_is_new, i,
+                       cam_t, rpy, dtype, spawn_range_m, range_weight_m, ex,
+                       line_track_weight, canonicalize_yaw=True):
+    """The association's outcome into frame i's measurements, shared by both
+    loops: spawn a slot for each new detection within `spawn_range_m` of the
+    camera at `cam_t` (a full book drops it), then turn each matched
+    detection into its camera-frame measurement (`_proposal_measurement` at
+    the camera's roll, pitch, yaw `rpy`) with its quality scaled by range and
+    line-track consistency.  Returns (report, meas9 (O, 9), quality (O,),
+    bbox [cx cy w h] (O, 4), has (O,))."""
+    O = len(matched)
+    meas9, quality, bbox, has = np.zeros((O, 9)), np.zeros(O), np.zeros((O, 4)), np.zeros(O, bool)
+    for d in np.nonzero(det_is_new)[0]:
+        if spawn_range_m is not None:
+            rng_d = float(np.linalg.norm(np.asarray(res.pos[d], np.float64) - cam_t))
+            if rng_d > spawn_range_m:
+                report = report._replace(far_spawns=report.far_spawns + 1)
+                continue
+        o = book.spawn()
+        if o is None:
+            report = report._replace(dropped_detections=report.dropped_detections + 1)
+            continue
+        det_of_track[o] = d
+        matched[o] = True
+    for o in np.nonzero(matched)[0]:
+        d = int(det_of_track[o])
+        meas9[o], quality[o], rng_d = _proposal_measurement(
+            res, d, *rpy, cam_t, dtype, canonicalize_yaw=canonicalize_yaw,
+        )
+        book.accept(o, i, boxes_c[d], rng_d, float(res.rotY[d]))
+        if range_weight_m is not None:
+            quality[o] *= min(1.0, (range_weight_m / max(rng_d, 1e-6)) ** 2)
+        if ex:
+            line_matched, mids, lmask_h = ex
+            cons = _line_track_quality(boxes_c, d, lmask_h, mids, line_matched)
+            quality[o] *= (1.0 - line_track_weight) + line_track_weight * cons
+        x0b, y0b, x1b, y1b = boxes_c[d]
+        bbox[o] = [(x0b + x1b) / 2, (y0b + y1b) / 2, x1b - x0b, y1b - y0b]
+        has[o] = True
+    return report, meas9, quality, bbox, has
+
+
+def _proposal_overrides(proposal_overrides):
+    from cube_slam_wu_tpu_torch.ops.proposal import ProposalConfig
+    from cube_slam_wu_tpu_torch.ops.proposal import _check_config
+
+    over = dict(proposal_overrides or {})
+    over.setdefault("nominal_skew_ratio", 2.0)  # main_obj.cpp:499
+    # f32-stable winner selection (ProposalConfig.rank_margin) and smooth
+    # chamfer sampling (ProposalConfig.bilinear_dist), as in the JAX drivers
+    over.setdefault("rank_margin", 2e-3)
+    over.setdefault("bilinear_dist", True)
+    _check_config(ProposalConfig(**over))
+    return over
+
+
+class _LineTracker:
+    """Frame-to-frame LBD line tracking on the device: the previous frame's
+    float descriptors matched to this frame's (guided by midpoint motion).
+    `track` returns the device tensors (matched flags, line midpoints) that
+    the caller pulls with the proposals, or None on the first frame."""
+
+    def __init__(self, gate: float):
+        self.gate = gate
+        self.prev = None
+
+    def track(self, gray32, lines32, lmask):
+        from cube_slam_wu_tpu_torch.ops import lbd as lbd_ops
+
+        with record_function("kitti/lbd"):
+            desc, dvalid = lbd_ops.lbd_descriptors(gray32, lines32, lmask)
+            dvalid = dvalid & lmask
+            out = None
+            if self.prev is not None:
+                prev_lines, prev_valid, prev_desc = self.prev
+                _, _, matched = lbd_ops.l2_match(
+                    desc, prev_desc, dvalid, prev_valid,
+                    query_lines=lines32, train_lines=prev_lines,
+                    max_midpoint_dist=self.gate,
+                )
+                out = (matched, 0.5 * (lines32[:, 0:2] + lines32[:, 2:4]))
+            self.prev = (lines32, dvalid, desc)
+        return out
+
+
+class _PathFrames:
+    """Frames of a KITTI-layout sequence from (image path, detections path)
+    pairs: item i is (gray (H, W) uint8 or None when the image file is
+    missing, detection rows `x y w h conf` or None when the detections file
+    is missing).  Decodes on access (Pillow)."""
+
+    def __init__(self, specs):
+        self.specs = [(pathlib.Path(a), pathlib.Path(b)) for a, b in specs]
+
+    def __len__(self):
+        return len(self.specs)
+
+    def __getitem__(self, i):
+        img, det = self.specs[i]
+        gray = uio.load_image_gray(img).astype(np.uint8) if img.exists() else None
+        rows = uio.read_number_txt(det) if det.exists() else None
+        return gray, rows
+
+
+def _xywh(boxes_c):
+    """Corner boxes -> [x y w h] with the matlab -1 offset (main_obj.cpp:620)."""
+    b = np.asarray(boxes_c, np.float64)
+    return np.column_stack([b[:, 0] - 1.0, b[:, 1] - 1.0, b[:, 2] - b[:, 0], b[:, 3] - b[:, 1]])
+
+
+def _frontend_frames(
+    frames,
+    n: int,
+    K_np: np.ndarray,
+    T0: np.ndarray,
+    dtype,
+    dev,
+    detect_cfg=None,
+    proposal_overrides: dict | None = None,
+    max_objects: int = 1,
+    max_detections: int | None = None,
+    min_iou: float = 0.3,
+    use_yaw_prior: bool = False,
+    canonicalize_yaw: bool = True,
+    line_track_weight: float = 0.0,
+    line_track_gate: float = 80.0,
+    checkpoint_path=None,
+    checkpoint_every: int = 25,
+    track_max_age: int | None = None,
+    depth_gate_m: float | None = None,
+    spawn_range_m: float | None = None,
+    range_weight_m: float | None = None,
+):
+    """The two-phase front-end over a frame sequence (see
+    `run_online_frontend`).  `T0` is the fixed camera-to-world pose (4x4)."""
+    from cube_slam_wu_tpu_torch.ops.detect import DetectConfig, _check_config, detect_line_segments
+    from cube_slam_wu_tpu_torch.ops.proposal import ProposalConfig, detect_cuboids
+
+    detect_cfg = detect_cfg or DetectConfig()
+    _check_config(detect_cfg)
+    over = _proposal_overrides(proposal_overrides)
+    O = max_objects
+    D = max_detections or max(1, max_objects)
+    if O == 1 and D == 1 and use_yaw_prior:
+        raise NotImplementedError(
+            "use_yaw_prior needs detect_cuboid_single(yaw_prior=...), which is not ported yet"
+        )
+
+    roll0, pitch0, yaw0 = (float(v) for v in rotu.rot_to_euler_zyx(torch.as_tensor(T0[:3, :3])))
+    K = torch.as_tensor(np.asarray(K_np, np.float64)).to(device=dev, dtype=dtype)
+    T0_t = torch.as_tensor(T0).to(device=dev, dtype=dtype)
+
+    meas9 = np.zeros((n, O, 9))
+    quality = np.zeros((n, O))
+    has = np.zeros((n, O), bool)
+    bbox2d = np.zeros((n, O, 4))  # associated YOLO box as [cx, cy, w, h]
+    book = _TrackletBook(O)
+    report = FrontendReport(n, [], [], [], [], 0)
+    lines_tr = _LineTracker(line_track_gate) if line_track_weight > 0.0 else None
+
+    start_frame = 0
+    if checkpoint_path is not None:
+        from cube_slam_wu_tpu_torch.slam import checkpoint as ckpt
+
+        def _ckpt_state():
+            return dict(
+                i_next=np.asarray(start_frame),
+                meas9=meas9, quality=quality, has=has, bbox2d=bbox2d,
+                **book.state(),
+                missing_image=np.asarray(report.missing_image, np.int64),
+                missing_detections=np.asarray(report.missing_detections, np.int64),
+                empty_detections=np.asarray(report.empty_detections, np.int64),
+                no_valid_proposal=np.asarray(report.no_valid_proposal, np.int64),
+                dropped=np.asarray(report.dropped_detections),
+                far_spawns=np.asarray(report.far_spawns),
+                cap_overflow_frames=np.asarray(report.cap_overflow_frames),
+                cap_fallbacks=np.asarray(report.cap_fallbacks),
+            )
+
+        cp = ckpt._resolve(checkpoint_path)
+        if cp.exists():
+            data = np.load(cp)
+            # prefix copy: an interrupted run may have been saved with a
+            # shorter frame list than this resume (or vice versa)
+            m = min(n, data["meas9"].shape[0])
+            start_frame = min(int(data["i_next"]), n)
+            meas9[:m] = data["meas9"][:m]
+            quality[:m] = data["quality"][:m]
+            has[:m] = data["has"][:m]
+            bbox2d[:m] = data["bbox2d"][:m]
+            book.load_state(data)
+            get = lambda k: int(data[k]) if k in data else 0
+            report = FrontendReport(
+                n,
+                list(data["missing_image"]),
+                list(data["missing_detections"]),
+                list(data["empty_detections"]),
+                list(data["no_valid_proposal"]),
+                int(data["dropped"]),
+                get("far_spawns"),
+                cap_overflow_frames=get("cap_overflow_frames"),
+                cap_fallbacks=get("cap_fallbacks"),
+            )
+
+    for i in range(start_frame, n):
+        if checkpoint_path is not None and i > start_frame and (i - start_frame) % max(checkpoint_every, 1) == 0:
+            state = _ckpt_state()
+            state["i_next"] = np.asarray(i)
+            ckpt.save_pytree(checkpoint_path, state)
+        gray_u8, rows = frames[i]
+        if gray_u8 is None:
+            report.missing_image.append(i)
+            continue
+        if rows is None:
+            report.missing_detections.append(i)
+            continue
+        boxes_c, _conf, dmask = uio.detections_from_rows(rows, n_max=D)
+        if not dmask.any():
+            report.empty_detections.append(i)
+            continue
+        gray32 = hostsync.push(np.ascontiguousarray(gray_u8, np.uint8), dev).to(torch.float32)
+        gray = gray32.to(dtype)
+        # line detection ALWAYS runs in f32 (dtype-pinned line sets)
+        with record_function("kitti/detect_lines"):
+            lines32, lmask = detect_line_segments(gray32, detect_cfg)
+        lines = lines32.to(dtype)
+        extra = ()
+        if lines_tr is not None:
+            tracked = lines_tr.track(gray32, lines32, lmask)
+            if tracked is not None:
+                extra = (*tracked, lmask)
+        cfg = ProposalConfig(
+            max_lines=int(lines.shape[0]), sample_cam_roll_pitch=(i != 0), **over
+        )
+        xywh_t = hostsync.push(_xywh(boxes_c), dev, dtype)
+        dmask_t = hostsync.push(dmask, dev)
+
+        def many_det(c, extra=extra):
+            with record_function("kitti/proposals"):
+                r = detect_cuboids(gray, K, T0_t, xywh_t, dmask_t, lines, lmask, c)
+            return _pull_proposals(r, extra)
+
+        (res, ex) = many_det(cfg)
+        res, report = _exact_gather_fallback(res, report, lambda: many_det(_caps_off(cfg), ())[0])
+        det_valid = res.valid & dmask
+        if not det_valid.any():
+            report.no_valid_proposal.append(i)
+            continue
+
+        book.retire_stale(i, track_max_age)
+        det_of_track, matched, det_is_new = _associate_local(book, boxes_c, det_valid, min_iou)
+        cam_t = T0[:3, 3]
+        if depth_gate_m is not None:
+            # camera-relative range of each candidate
+            for o in np.nonzero(matched)[0]:
+                d = int(det_of_track[o])
+                rng_d = float(np.linalg.norm(np.asarray(res.pos[d], np.float64) - cam_t))
+                if book.range[o] >= 0.0 and abs(rng_d - book.range[o]) > depth_gate_m:
+                    matched[o] = False  # drop the handoff measurement
+        report, meas9[i], quality[i], bbox2d[i], has[i] = _spawn_and_measure(
+            book, report, res, boxes_c, det_of_track, matched, det_is_new, i, cam_t,
+            (roll0, pitch0, yaw0), dtype, spawn_range_m, range_weight_m, ex,
+            line_track_weight, canonicalize_yaw=canonicalize_yaw,
+        )
+
+    if checkpoint_path is not None:
+        state = _ckpt_state()
+        state["i_next"] = np.asarray(n)
+        ckpt.save_pytree(checkpoint_path, state)
+
+    frames_in = tracker.FrameInput(
+        meas=Cuboid.from_minimal(hostsync.push(meas9, dev, dtype)),
+        quality=hostsync.push(quality, dev, dtype),
+        has_meas=hostsync.push(has, dev),
+        active=torch.ones((n,), dtype=torch.bool, device=dev),
+        bbox=hostsync.push(bbox2d, dev, dtype),
+        bbox_weight=torch.zeros((n, O), dtype=dtype, device=dev),  # caller scales
+    )
+    return frames_in, report
+
+
+def run_online_frontend(
+    frame_specs,
+    K_np: np.ndarray,
+    first_Twc: SE3,
+    dtype=torch.float32,
+    detect_cfg=None,
+    proposal_overrides: dict | None = None,
+    max_objects: int = 1,
+    max_detections: int | None = None,
+    min_iou: float = 0.3,
+    use_yaw_prior: bool = False,
+    canonicalize_yaw: bool = True,
+    line_track_weight: float = 0.0,
+    line_track_gate: float = 80.0,
+    checkpoint_path=None,
+    checkpoint_every: int = 25,
+    track_max_age: int | None = None,
+    depth_gate_m: float | None = None,
+    spawn_range_m: float | None = None,
+    range_weight_m: float | None = None,
+    device=None,
+):
+    """Multi-object online front-end: per frame, line detection -> batched
+    cuboid proposals for every 2D detection -> IoU tracklet association into
+    fixed object slots.  Returns (FrameInput with (N, O) axes on the device,
+    FrontendReport).
+
+    `frame_specs` is a list of (image_path, detections_path) per frame.  The
+    proposals for frames > 0 are generated around the FIRST camera pose with
+    roll/pitch sampling (main_obj.cpp:624-628): no tracker feedback enters
+    the front-end.
+
+    `depth_gate_m` drops an IoU match whose camera-relative range jumps more
+    than this many metres from the track's last accepted range (a handoff
+    between objects on a forward drive); `spawn_range_m` refuses to spawn a
+    landmark from a detection lifted beyond this range; `range_weight_m`
+    scales each accepted measurement's quality by min(1, (R / range)^2);
+    `track_max_age` retires a track not associated for that many frames;
+    `line_track_weight` scales the quality by the fraction of the box's lines
+    matched to the previous frame by LBD descriptors.
+
+    `checkpoint_path` enables elastic resume: every `checkpoint_every`
+    frames the accumulated measurements + tracklet state are saved (the JAX
+    package's keys); an existing file resumes at the first unprocessed
+    frame.  Line-track descriptor state is not checkpointed.
+
+    `use_yaw_prior` (one object, one detection) raises NotImplementedError:
+    `detect_cuboid_single(yaw_prior=...)` is not ported yet."""
+    dev = resolve_device(device)
+    frames = _PathFrames(frame_specs)
+    T0 = first_Twc.matrix().to(torch.float64).cpu().numpy()
+    return _frontend_frames(
+        frames, len(frames), K_np, T0, dtype, dev,
+        detect_cfg=detect_cfg, proposal_overrides=proposal_overrides,
+        max_objects=max_objects, max_detections=max_detections, min_iou=min_iou,
+        use_yaw_prior=use_yaw_prior, canonicalize_yaw=canonicalize_yaw,
+        line_track_weight=line_track_weight, line_track_gate=line_track_gate,
+        checkpoint_path=checkpoint_path, checkpoint_every=checkpoint_every,
+        track_max_age=track_max_age, depth_gate_m=depth_gate_m,
+        spawn_range_m=spawn_range_m, range_weight_m=range_weight_m,
+    )
+
+
+def run_kitti_slam(
+    seq_dir,
+    detections_dir,
+    poses_path=None,
+    n_frames: int | None = None,
+    device=None,
+    **kwargs,
+) -> SlamOutput:
+    """Multi-object online SLAM over a KITTI-odometry-layout sequence: reads
+    calib.txt, times.txt, image_0/*.png (Pillow) and the per-frame detection
+    txts (`x y w h prob`, the reference's filter_2d_obj_txts contract) and
+    runs `run_kitti_frames` over them; see there for the options.  The
+    frame-0 pose is the ground truth's first pose when `poses_path` is given,
+    else the synthetic generator's camera_pose(0)."""
+    dev = resolve_device(device)  # fail before touching any file
+    seq = ukitti.load_sequence(seq_dir, poses_path)
+    n_avail = len(seq.image_paths)
+    n = n_avail if n_frames is None else min(n_frames, n_avail)
+    if n == 0:
+        raise ValueError(f"no images under {seq_dir}/image_0")
+    if seq.poses_T_wc is not None:
+        T0 = np.asarray(seq.poses_T_wc[0], np.float64)
+    else:
+        from cube_slam_wu_tpu_torch.utils.synth import camera_pose
+
+        T0 = np.asarray(camera_pose(0.0), np.float64)
+    frames = _PathFrames(
+        [(seq.image_paths[i], ukitti.detection_txt_path(detections_dir, i)) for i in range(n)]
+    )
+    return run_kitti_frames(
+        frames, seq.K, T0, n_frames=n, timestamps=seq.timestamps[:n], device=dev, **kwargs
+    )
+
+
+def run_kitti_frames(
+    frames,
+    K_np: np.ndarray,
+    T_wc0: np.ndarray,
+    n_frames: int | None = None,
+    timestamps: np.ndarray | None = None,
+    iterations: int = 5,
+    dtype=torch.float32,
+    detect_cfg=None,
+    proposal_overrides: dict | None = None,
+    soft_gate_alpha: float | None = 2.0,
+    max_objects: int = 8,
+    max_detections: int = 4,
+    min_iou: float = 0.25,
+    window: int | None = None,
+    robust_delta: float | None = None,
+    bbox_edge_weight: float = 0.0,
+    checkpoint_path=None,
+    checkpoint_every: int = 25,
+    track_max_age: int | None = 12,
+    depth_gate_m: float | None = 2.5,
+    spawn_range_m="auto",
+    min_meas: int = 2,
+    range_weight_m: float | None = None,
+    pose_feedback: bool = False,
+    point_weight: float = 0.0,
+    n_points: int = 96,
+    point_opts: dict | None = None,
+    line_track_weight="auto",
+    line_track_gate: float = 80.0,
+    device=None,
+    on_frame=None,
+) -> SlamOutput:
+    """Multi-object online SLAM over frames in memory: the JAX package's
+    `run_kitti_slam` loop with its frame source as a parameter.
+
+    `frames` is a sequence (len + indexing) whose item i is (gray (H, W)
+    uint8 or None for a missing image, detection rows `x y w h conf` (1-based
+    x/y) or None for a missing detections file); `K_np` the intrinsics,
+    `T_wc0` the camera-to-world pose of frame 0 (z-up world, camera
+    `T_wc0[2, 3]` above the ground).  `device=None` means the card (raises
+    without one); the CPU is used only on `device="cpu"`.  `on_frame(i)`
+    (optional) is called after frame i's step was enqueued.
+
+    `pose_feedback=True` interleaves front-end and back-end: each frame's
+    proposal grid runs at the tracker's constant-velocity PREDICTED pose
+    (the reference reuses the first frame's pose for every frame,
+    main_obj.cpp:624-628, which drifts away from a moving camera).
+    `pose_feedback=False` keeps the reference's two-phase schedule.
+    `point_weight > 0` (interleaved, with a window) adds point landmarks to
+    the windowed joint BA.
+
+    Auto policies, as in the JAX package: `spawn_range_m="auto"` is
+    sqrt(0.6 * fx * h_cam) (the range at which one pixel of box error lifts
+    to 0.6 m of depth error, h_cam = |T_wc0[2, 3]| floored at 0.5 m);
+    `line_track_weight="auto"` is 0.5 in the interleaved mode without points,
+    else 0.
+
+    `min_meas` reports a landmark as valid only after it has accepted that
+    many measurements (the graph keeps every slot)."""
+    dev = resolve_device(device)
+    n = len(frames) if n_frames is None else min(int(n_frames), len(frames))
+    if n == 0:
+        raise ValueError("no frames")
+    T0 = np.asarray(T_wc0, np.float64)
+    K_np = np.asarray(K_np, np.float64)
+    timestamps = np.arange(n) * 0.1 if timestamps is None else np.asarray(timestamps)[:n]
+    if isinstance(spawn_range_m, str):  # "auto"
+        h_cam = max(float(abs(T0[2, 3])), 0.5)
+        spawn_range_m = float(np.sqrt(0.6 * K_np[0, 0] * h_cam))
+    if point_weight > 0.0 and not pose_feedback:
+        raise ValueError("point_weight > 0 needs the interleaved loop (pose_feedback=True)")
+    if isinstance(line_track_weight, str):  # "auto"
+        line_track_weight = 0.5 if (pose_feedback and point_weight == 0.0) else 0.0
+    if pose_feedback:
+        return _run_kitti_tracked(
+            frames, n, K_np, T0, timestamps, dtype, dev,
+            iterations=iterations,
+            detect_cfg=detect_cfg,
+            proposal_overrides=proposal_overrides,
+            soft_gate_alpha=soft_gate_alpha,
+            max_objects=max_objects,
+            max_detections=max_detections,
+            min_iou=min_iou,
+            window=window,
+            robust_delta=robust_delta,
+            bbox_edge_weight=bbox_edge_weight,
+            track_max_age=track_max_age,
+            spawn_range_m=spawn_range_m,
+            min_meas=min_meas,
+            range_weight_m=range_weight_m,
+            checkpoint_path=checkpoint_path,
+            checkpoint_every=checkpoint_every,
+            point_weight=point_weight,
+            n_points=n_points,
+            point_opts=point_opts,
+            line_track_weight=line_track_weight,
+            line_track_gate=line_track_gate,
+            on_frame=on_frame,
+        )
+
+    first_Twc = SE3.from_matrix(torch.as_tensor(T0).to(dtype))
+    frames_in, report = _frontend_frames(
+        frames, n, K_np, first_Twc.matrix().to(torch.float64).numpy(), dtype, dev,
+        detect_cfg=detect_cfg,
+        proposal_overrides=proposal_overrides,
+        max_objects=max_objects,
+        max_detections=max_detections,
+        min_iou=min_iou,
+        checkpoint_path=checkpoint_path,
+        checkpoint_every=checkpoint_every,
+        track_max_age=track_max_age,
+        depth_gate_m=depth_gate_m,
+        spawn_range_m=spawn_range_m,
+        range_weight_m=range_weight_m,
+    )
+    if bbox_edge_weight > 0.0:
+        frames_in = frames_in._replace(
+            bbox_weight=torch.where(
+                frames_in.has_meas,
+                torch.full_like(frames_in.quality, bbox_edge_weight),
+                torch.zeros_like(frames_in.quality),
+            )
+        )
+    with record_function("kitti/run_incremental"):
+        graph, chi2s, cube_hist = tracker.run_incremental(
+            first_Twc.to(dev),
+            frames_in,
+            iterations=iterations,
+            soft_gate_alpha=soft_gate_alpha,
+            window=window,
+            robust_delta=robust_delta,
+            K=torch.as_tensor(K_np).to(device=dev, dtype=dtype) if bbox_edge_weight > 0.0 else None,
+        )
+    if on_frame is not None:
+        on_frame(n - 1)
+    traj, cubes, cube_valid, chi2, hist, has = hostsync.pull(
+        (graph.cam_Twc().to_xyzq(), graph.cube.to_minimal(), graph.cube_valid,
+         chi2s, cube_hist, frames_in.has_meas)
+    )
+    meas_count = has.sum(axis=0)
+    return SlamOutput(
+        traj_Twc_xyzq=traj,
+        cube_minimal=cubes[0],
+        chi2=chi2,
+        timestamps=timestamps,
+        cube_history=hist,
+        cubes_minimal=cubes,
+        cube_valid=cube_valid & (meas_count >= min_meas),
+        frontend_report=report,
+    )
+
+
+def _run_kitti_tracked(
+    frames,
+    n: int,
+    K_np: np.ndarray,
+    T0: np.ndarray,
+    timestamps: np.ndarray,
+    dtype,
+    dev,
+    iterations: int,
+    detect_cfg,
+    proposal_overrides,
+    soft_gate_alpha,
+    max_objects: int,
+    max_detections: int,
+    min_iou: float,
+    window: int | None,
+    robust_delta,
+    bbox_edge_weight: float,
+    track_max_age: int | None,
+    spawn_range_m: float | None = 25.0,
+    min_meas: int = 2,
+    range_weight_m: float | None = None,
+    checkpoint_path=None,
+    checkpoint_every: int = 25,
+    assoc_gate_m: float = 3.0,
+    point_weight: float = 0.0,
+    n_points: int = 96,
+    point_opts: dict | None = None,
+    line_track_weight: float = 0.0,
+    line_track_gate: float = 80.0,
+    on_frame=None,
+):
+    """Interleaved front-end/back-end loop (see run_kitti_frames): one
+    tracker step per frame, with the next frame's proposal grid anchored at
+    the tracker's constant-velocity predicted pose.
+
+    `assoc_gate_m` is a 3D association gate only this mode can provide: an
+    IoU match is vetoed when the detection's world-lifted cuboid position is
+    more than this many metres from the track's current landmark estimate
+    (a seamless handoff between objects on a forward drive would otherwise
+    build one chimera track).  The vetoed measurement is DROPPED only.
+
+    `point_weight > 0` adds point landmarks to the windowed joint BA
+    (requires `window`): Harris+ZNCC features tracked incrementally
+    (slam.features.IncrementalTracker, slot reuse with respawn flags),
+    triangulated/ground-bootstrapped and optimised inside each window
+    (tracker.make_windowed_point_step).  Ground hints come from corners below
+    the principal row and outside every detection box."""
+    from cube_slam_wu_tpu_torch.ops.detect import DetectConfig, _check_config, detect_line_segments
+    from cube_slam_wu_tpu_torch.ops.proposal import ProposalConfig, detect_cuboids
+    from cube_slam_wu_tpu_torch.slam.graph import CameraObjectGraph
+    from cube_slam_wu_tpu_torch.slam.window import CubePrior
+
+    detect_cfg = detect_cfg or DetectConfig()
+    _check_config(detect_cfg)
+    over = _proposal_overrides(proposal_overrides)
+    O, D = max_objects, max_detections
+    K_t = torch.as_tensor(K_np).to(device=dev, dtype=dtype)
+    first_Twc = SE3.from_rot_trans(
+        torch.as_tensor(T0[:3, :3]).to(device=dev, dtype=dtype),
+        torch.as_tensor(T0[:3, 3]).to(device=dev, dtype=dtype),
+    )
+    # frame 0's pose as the driver's host cache sees it (in `dtype`)
+    T_first = SE3.from_rot_trans(
+        torch.as_tensor(T0[:3, :3]).to(dtype), torch.as_tensor(T0[:3, 3]).to(dtype)
+    ).matrix().to(torch.float64).numpy()
+
+    graph = CameraObjectGraph.empty(n, O, dtype, dev)._replace(K=K_t)
+    windowed = window is not None and window < n
+    use_points = point_weight > 0.0
+    if use_points and not windowed:
+        raise ValueError("point_weight > 0 requires a fixed-lag window")
+    ftracker = None
+    if use_points:
+        from cube_slam_wu_tpu_torch.slam.features import IncrementalTracker
+
+        step = tracker.make_windowed_point_step(
+            window, K_t, iterations, None, soft_gate_alpha, 1.0,
+            robust_delta, point_weight=point_weight, **(point_opts or {}),
+        )
+        carry = (graph, CubePrior.empty(O, dtype, dev), tracker.PointState.empty(n, n_points, dtype, dev))
+        # level-camera horizon: ground candidates sit below the principal row
+        ftracker = IncrementalTracker(n_points, horizon_row=float(K_np[1, 2]) + 5.0)
+    elif windowed:
+        step = tracker.make_windowed_step(window, iterations, None, soft_gate_alpha, 1.0, robust_delta)
+        carry = (graph, CubePrior.empty(O, dtype, dev))
+    else:
+        step = tracker.make_incremental_step(iterations, None, soft_gate_alpha, 1.0, robust_delta)
+        carry = graph
+
+    book = _TrackletBook(O)
+    report = FrontendReport(n, [], [], [], [], 0)
+    chi2s = np.zeros(n)
+    cube_hist = np.zeros((n, O, 9))
+    start_frame = 0
+    lines_tr = _LineTracker(line_track_gate) if line_track_weight > 0.0 else None
+
+    if checkpoint_path is not None:
+        from cube_slam_wu_tpu_torch.slam import checkpoint as ckpt
+
+        cp = ckpt._resolve(checkpoint_path)
+        data = None
+        if cp.exists():
+            # the checkpoint is TWO files written back-to-back (state, then
+            # the carry); a crash between the writes — or a stale state file
+            # from an earlier run — leaves a torn pair: read as "start fresh"
+            try:
+                data = np.load(cp)
+                resumed_carry = ckpt.load_pytree(cp.parent / (cp.name + ".carry"), carry)
+            except (OSError, ValueError, KeyError) as e:
+                print(f"[kitti] torn/stale checkpoint at {cp} ({e}); starting fresh", flush=True)
+                data = None
+        if data is not None:
+            start_frame = min(int(data["i_next"]), n)
+            carry = resumed_carry
+            book.load_state(data)
+            m = min(n, data["chi2s"].shape[0])
+            chi2s[:m] = data["chi2s"][:m]
+            cube_hist[:m] = data["cube_hist"][:m]
+            if ftracker is not None:
+                ftracker.load_state(data)
+                prev = frames[start_frame - 1][0] if start_frame > 0 else None
+                if prev is not None:
+                    ftracker.prev_gray = hostsync.push(
+                        np.ascontiguousarray(prev, np.uint8), dev
+                    ).to(torch.float32)
+
+        def _save(i_next):
+            ckpt.save_pytree(
+                cp,
+                dict(
+                    i_next=np.asarray(i_next),
+                    **book.state(),
+                    **(ftracker.state() if ftracker is not None else {}),
+                    chi2s=chi2s, cube_hist=cube_hist,
+                ),
+            )
+            ckpt.save_pytree(cp.parent / (cp.name + ".carry"), carry)
+
+    # Host-side caches refreshed from the ONE post-step read each frame: the
+    # two most recent optimized Tcw matrices (constant-velocity pose
+    # prediction) and the cuboid positions/validity (3D association gate).
+    Tcw_prev = Tcw_prevprev = None  # (4,4) float64, frames i-1 / i-2
+    cube_pos_h = np.zeros((O, 3))
+    cube_valid_h = np.zeros(O, bool)
+    for i in range(start_frame, n):
+        if checkpoint_path is not None and i > start_frame and (i - start_frame) % max(checkpoint_every, 1) == 0:
+            _save(i)
+
+        g = carry if not windowed else carry[0]
+        if i > 0 and Tcw_prev is None:
+            # resumed mid-run: one-time refill of the host caches
+            Tcw_prev, Tcw_prevprev, cube_pos_h, cube_valid_h = hostsync.pull(
+                (g.cam_Tcw[i - 1].matrix(), g.cam_Tcw[max(i - 2, 0)].matrix(),
+                 g.cube.pose.trans, g.cube_valid)
+            )
+            Tcw_prev = np.asarray(Tcw_prev, np.float64)
+            Tcw_prevprev = np.asarray(Tcw_prevprev, np.float64)
+        # constant-velocity predicted pose (the tracker recomputes the same
+        # prediction inside _insert_frame), entirely on the host
+        if i == 0:
+            T_pred = T_first
+        else:
+            pred_Tcw = Tcw_prev @ _se3_inv_mat(Tcw_prevprev) @ Tcw_prev if i > 1 else Tcw_prev
+            T_pred = _se3_inv_mat(pred_Tcw)
+        R_p = T_pred[:3, :3]
+        pitch_p = float(np.arcsin(np.clip(-R_p[2, 0], -1.0, 1.0)))
+        roll_p = float(np.arctan2(R_p[2, 1], R_p[2, 2]))
+        yaw_p = float(np.arctan2(R_p[1, 0], R_p[0, 0]))
+
+        meas9 = np.zeros((O, 9))  # from_minimal(0) == Cuboid.identity
+        quality_i = np.zeros(O)
+        has_i = np.zeros(O, bool)
+        bbox_i = np.zeros((O, 4))
+
+        gray_u8, rows = frames[i]
+        ok = True
+        gray = gray32 = boxes_c = dmask = None
+        if gray_u8 is None:
+            report.missing_image.append(i)
+            ok = False
+        else:
+            gray32 = hostsync.push(np.ascontiguousarray(gray_u8, np.uint8), dev).to(torch.float32)
+            gray = gray32.to(dtype)
+        if ok and rows is None:
+            report.missing_detections.append(i)
+            ok = False
+        if ok:
+            boxes_c, _conf, dmask = uio.detections_from_rows(rows, n_max=D)
+            if not dmask.any():
+                report.empty_detections.append(i)
+                ok = False
+
+        # -- incremental feature tracking (every frame with an image) -------
+        pt_obs = np.zeros((n_points, 2))
+        pt_alive = np.zeros(n_points, bool)
+        pt_respawn = np.zeros(n_points, bool)
+        pt_ground = np.zeros(n_points, bool)
+        if ftracker is not None and gray32 is not None:
+            with record_function("kitti/features"):
+                pt_obs, pt_alive, pt_respawn, pt_ground = ftracker.advance(
+                    gray32, boxes_c[dmask] if boxes_c is not None else None
+                )
+
+        if ok:
+            with record_function("kitti/detect_lines"):
+                lines32, lmask = detect_line_segments(gray32, detect_cfg)
+            extra = ()
+            if lines_tr is not None:
+                tracked = lines_tr.track(gray32, lines32, lmask)
+                if tracked is not None:
+                    extra = (*tracked, lmask)
+            cfg = ProposalConfig(max_lines=int(lines32.shape[0]), sample_cam_roll_pitch=(i != 0), **over)
+            T_pred_t = hostsync.push(T_pred, dev, dtype)
+            xywh_t = hostsync.push(_xywh(boxes_c), dev, dtype)
+            dmask_t = hostsync.push(dmask, dev)
+            lines = lines32.to(dtype)
+
+            def kitti_det(c, extra=extra):
+                with record_function("kitti/proposals"):
+                    r = detect_cuboids(gray, K_t, T_pred_t, xywh_t, dmask_t, lines, lmask, c)
+                return _pull_proposals(r, extra)
+
+            res, ex = kitti_det(cfg)
+            res, report = _exact_gather_fallback(res, report, lambda: kitti_det(_caps_off(cfg), ())[0])
+            det_valid = res.valid & dmask
+            if not det_valid.any():
+                report.no_valid_proposal.append(i)
+                ok = False
+        if ok:
+            book.retire_stale(i, track_max_age)
+            det_of_track, matched, det_is_new = _associate_local(book, boxes_c, det_valid, min_iou)
+            # 3D gate against the landmark estimate (cached from the last
+            # step's read); on veto the measurement is DROPPED only
+            if assoc_gate_m is not None and assoc_gate_m > 0:
+                for o in np.nonzero(matched)[0]:
+                    if not cube_valid_h[o]:
+                        continue
+                    d = int(det_of_track[o])
+                    dist3 = float(np.linalg.norm(np.asarray(res.pos[d], np.float64) - cube_pos_h[o]))
+                    if dist3 > assoc_gate_m:
+                        matched[o] = False
+            report, meas9, quality_i, bbox_i, has_i = _spawn_and_measure(
+                book, report, res, boxes_c, det_of_track, matched, det_is_new, i, T_pred[:3, 3],
+                (roll_p, pitch_p, yaw_p), dtype, spawn_range_m, range_weight_m, ex,
+                line_track_weight,
+            )
+
+        frame = _assemble_frame(meas9, quality_i, has_i, bbox_i, bbox_edge_weight, dev, dtype)
+        with record_function("kitti/step"):
+            if use_points:
+                carry, (chi2, cube_min) = step(
+                    carry,
+                    (i, frame, first_Twc,
+                     hostsync.push(pt_obs, dev, dtype), hostsync.push(pt_alive, dev),
+                     hostsync.push(pt_respawn, dev), hostsync.push(pt_ground, dev)),
+                )
+            else:
+                carry, (chi2, cube_min) = step(carry, (i, frame, first_Twc))
+        if on_frame is not None:
+            on_frame(i)
+        # ONE read per frame: the step's outputs + everything the next
+        # frame's host-side prediction and association gate need
+        g_next = carry[0] if windowed else carry
+        chi2_h, cube_min_h, T1_h, T2_h, cube_pos_h, cube_valid_h = hostsync.pull(
+            (chi2, cube_min) + _post_step_state(g_next, i)
+        )
+        Tcw_prev = np.asarray(T1_h, np.float64)
+        Tcw_prevprev = np.asarray(T2_h, np.float64)
+        chi2s[i] = float(chi2_h)
+        cube_hist[i] = cube_min_h
+
+    if checkpoint_path is not None:
+        _save(n)
+
+    graph = carry[0] if windowed else carry
+    final = (graph.cam_Twc().to_xyzq(), graph.cube.to_minimal(), graph.cube_valid)
+    if windowed:
+        final += (carry[1].valid,)
+    if use_points:
+        final += (carry[2].points, carry[2].point_valid)
+    host = hostsync.pull(final)
+    traj, cubes, cube_valid = host[:3]
+    return SlamOutput(
+        traj_Twc_xyzq=traj,
+        cube_minimal=cubes[0],
+        chi2=chi2s,
+        timestamps=timestamps,
+        cube_history=cube_hist,
+        cubes_minimal=cubes,
+        cube_valid=cube_valid & (book.count >= min_meas),
+        frontend_report=report,
+        prior_valid=host[3] if windowed else None,
+        points=host[4] if use_points else None,
+        point_valid=host[5] if use_points else None,
+    )

@@ -14,14 +14,12 @@ frames from a seed.
 
 from __future__ import annotations
 
+import pathlib
 from typing import NamedTuple
 
 import numpy as np
 
-# camera height above the ground plane and the KITTI->z-up axis change, as in
-# the JAX package's utils/kitti.py
-CAMERA_HEIGHT_M = 1.65
-KITTI_TO_ZUP = np.array([[1.0, 0.0, 0.0], [0.0, 0.0, 1.0], [0.0, -1.0, 0.0]])
+from cube_slam_wu_tpu_torch.utils.kitti import CAMERA_HEIGHT_M, KITTI_TO_ZUP
 
 # flat-shade gray levels by face orientation (world axes); distinct levels
 # give each cuboid edge a clean intensity step for Canny / line detection
@@ -304,3 +302,41 @@ def make_sequence(
     ]
     timestamps = np.arange(n_frames) * dt
     return SynthSequence(K, T_wc, images, detections, objects, timestamps)
+
+
+def write_kitti_sequence(seq: SynthSequence, out_dir, detections_subdir="detections"):
+    """Write the sequence in KITTI odometry layout (consumable by
+    utils.kitti.load_sequence and the `kitti` command line driver).  Returns
+    (seq_dir, detections_dir, poses_path).  Needs Pillow."""
+    from PIL import Image
+
+    out = pathlib.Path(out_dir)
+    img_dir = out / "image_0"
+    det_dir = out / detections_subdir
+    img_dir.mkdir(parents=True, exist_ok=True)
+    det_dir.mkdir(parents=True, exist_ok=True)
+
+    K = seq.K
+    p0 = np.zeros((3, 4))
+    p0[:, :3] = K
+    with open(out / "calib.txt", "w") as f:
+        f.write("P0: " + " ".join(f"{v:.6e}" for v in p0.ravel()) + "\n")
+    np.savetxt(out / "times.txt", seq.timestamps, fmt="%.6f")
+
+    # z-up T_wc -> KITTI convention (world = first-camera frame, cam-forward):
+    # invert utils.kitti.parse_poses (T_zup = R @ T_kitti; z += height)
+    Rinv = np.eye(4)
+    Rinv[:3, :3] = KITTI_TO_ZUP.T
+    rows = []
+    for T in seq.T_wc:
+        Tk = T.copy()
+        Tk[2, 3] -= CAMERA_HEIGHT_M
+        Tk = Rinv @ Tk
+        rows.append(Tk[:3, :4].ravel())
+    poses_path = out / "poses.txt"
+    np.savetxt(poses_path, np.asarray(rows), fmt="%.9e")
+
+    for i, (img, det) in enumerate(zip(seq.images, seq.detections)):
+        Image.fromarray(img).save(img_dir / f"{i:06d}.png")
+        np.savetxt(det_dir / f"{i:06d}.txt", det, fmt="%.3f")
+    return out, det_dir, poses_path

@@ -1,0 +1,55 @@
+"""Port parity: the KITTI driver (`run_kitti_slam`) interleaved with point
+landmarks (the production mode) against the JAX package's, both reading the
+same KITTI-layout files of a short synthetic drive (tests/kitti_parity.py);
+the entry points' device rule and the options not ported yet.
+
+Tolerances: float64 1e-5 m on the trajectory (the ZNCC tracker runs in
+float32 in both packages; its positions agree to 2e-5 px), 1e-4 m on
+landmarks and their history, 1e-4 relative on per-frame chi2 (kitti_parity.
+check_mode_f64); landmark validity and every front-end counter exactly.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import torch_parity  # noqa: F401  (one intra-op thread)
+from kitti_parity import check_mode_f64, write_drive
+
+from cube_slam_wu_tpu_torch.slam import pipeline as tpipe
+
+
+@pytest.fixture(scope="module")
+def drive(tmp_path_factory):
+    return write_drive(tmp_path_factory.mktemp("kitti") / "seq")
+
+
+@pytest.mark.parametrize("mode", ["points"])
+def test_run_kitti_slam_matches_jax_f64(drive, mode):
+    check_mode_f64(drive, mode)
+
+
+def test_entry_points_need_the_card_unless_told():
+    """`device=None` means the card; without one the entry points raise
+    instead of carrying on on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tpipe.run_kitti_frames([(None, None)], np.eye(3), np.eye(4))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tpipe.run_kitti_slam("/nonexistent", "/nonexistent")
+
+
+def test_unported_options_raise():
+    with pytest.raises(NotImplementedError, match="yaw_prior"):
+        tpipe._frontend_frames(
+            [(None, None)], 1, np.eye(3), np.eye(4), torch.float64, torch.device("cpu"),
+            max_objects=1, max_detections=1, use_yaw_prior=True,
+        )
+    from cube_slam_wu_tpu_torch.ops.detect import DetectConfig
+
+    with pytest.raises(NotImplementedError, match="short_recovery"):
+        tpipe.run_kitti_frames([(None, None)], np.eye(3), np.eye(4), device="cpu",
+                               detect_cfg=DetectConfig(short_recovery=True), pose_feedback=True)
+    with pytest.raises(ValueError, match="interleaved"):
+        tpipe.run_kitti_frames([(None, None)], np.eye(3), np.eye(4), device="cpu", point_weight=0.3)

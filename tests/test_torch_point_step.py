@@ -1,0 +1,204 @@
+"""Port parity: the point-augmented fixed-lag step
+(`tracker.make_windowed_point_step`) against the JAX package on a small
+forward drive: cuboid measurements with noise plus point tracks projected
+from world points on the ground, with a respawned slot.  Float32 runs in
+test_torch_point_step_f32.py; the same drive feeds the tests of
+`tracker.run_incremental` (test_torch_run_incremental*.py).
+
+The JAX step runs under `jax.jit` (as the JAX drivers run it); the port's
+takes the frame index as a host integer.  The carry is compared leaf by leaf
+after every frame.
+
+Tolerances: float64 1e-6 on poses, cuboids, points and the prior, 1e-6
+relative on chi2; float32 2e-3 on poses and cuboids, 5e-2 on points (a
+float32 Schur solve per iteration with a different LU and 3x3 inverse), 2e-2
+relative on chi2.  Masks (observation, validity, prior validity) exactly.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from torch_parity import DTYPES, assert_tree_close, jax_tree_to_numpy, to_j, to_np, to_t, tree_np
+
+import jax
+import jax.numpy as jnp
+
+from cube_slam_wu_tpu.core.cuboid import Cuboid as JCuboid
+from cube_slam_wu_tpu.core.se3 import SE3 as JSE3
+from cube_slam_wu_tpu.slam import tracker as jtracker
+from cube_slam_wu_tpu.slam.graph import CameraObjectGraph as JGraph
+from cube_slam_wu_tpu.slam.window import CubePrior as JPrior
+from cube_slam_wu_tpu_torch.core.cuboid import Cuboid as TCuboid
+from cube_slam_wu_tpu_torch.core.se3 import SE3 as TSE3
+from cube_slam_wu_tpu_torch.slam import tracker as ttracker
+from cube_slam_wu_tpu_torch.slam.convert import state_from_numpy, state_to_numpy
+from cube_slam_wu_tpu_torch.slam.graph import CameraObjectGraph as TGraph
+from cube_slam_wu_tpu_torch.slam.window import CubePrior as TPrior
+from cube_slam_wu_tpu_torch.utils.tree import tree_map
+
+N, O, P, W = 10, 2, 12, 4
+RESPAWN_FRAME, RESPAWN_SLOT = 6, 0
+HANDOVER = 5
+K = np.array([[240.0, 0, 160], [0, 240, 115], [0, 0, 1]])
+# 2D box edges keep a landmark seen in one frame off its measurement: with
+# the 3D edge alone LM pins it there exactly, and the JAX package's next
+# linearization then takes the degenerate half-turn front face (ROADMAP
+# queue 3 entry 1), where the port, by design, does not
+BBOX_WEIGHT = 0.005
+
+
+def _scene(seed=3, noise=0.05):
+    """Forward drive: camera 1.65 m above the ground moving 0.12 m/frame,
+    two cuboids, P ground points (slot 0 re-seeded with a new point at
+    RESPAWN_FRAME)."""
+    rng = np.random.default_rng(seed)
+    gt = np.zeros((N, 4, 4))
+    for i in range(N):
+        T = np.eye(4)
+        T[:3, :3] = [[1, 0, 0], [0, 0, 1], [0, -1, 0]]
+        T[:3, 3] = [0.02 * np.sin(i * 0.3), 0.12 * i, 1.65]
+        gt[i] = T
+    cubes = np.array([[-1.2, 4.0, 0.5, 0, 0, 0.3, 0.5, 0.4, 0.5],
+                      [1.4, 5.0, 0.4, 0, 0, 1.0, 0.6, 0.3, 0.4]])[:O]
+    meas9 = np.zeros((N, O, 9))
+    has = np.zeros((N, O), bool)
+    bbox = np.zeros((N, O, 4))
+    for i in range(N):
+        T = JSE3.from_matrix(jnp.asarray(gt[i]))
+        for o in range(O):
+            if i % 4 == 3 and o == 1:
+                continue  # a missed detection
+            cube = JCuboid.from_minimal(jnp.asarray(cubes[o]))
+            bbox[i, o] = np.array(cube.project_bbox(T.inverse(), jnp.asarray(K))) + rng.normal(0, 1.0, 4)
+            m = np.array(cube.transform_to(T).to_minimal())
+            m[:3] += rng.normal(0, noise, 3)
+            m[5] += rng.normal(0, 0.03)
+            meas9[i, o] = m
+            has[i, o] = True
+    quality = np.where(has, 0.75, 0.0)
+
+    pts_w = np.column_stack([rng.uniform(-3, 3, P), rng.uniform(3, 9, P), np.zeros(P)])
+    new_pt = np.array([0.8, 6.0, 0.0])
+    obs_uv = np.zeros((N, P, 2))
+    obs_mask = np.zeros((N, P), bool)
+    for i in range(N):
+        world = pts_w.copy()
+        if i >= RESPAWN_FRAME:
+            world[RESPAWN_SLOT] = new_pt
+        Rcw = gt[i][:3, :3].T
+        pc = world @ Rcw.T + (-Rcw @ gt[i][:3, 3])
+        uv = pc @ K.T
+        uv = uv[:, :2] / uv[:, 2:3]
+        ok = (pc[:, 2] > 0.5) & (uv[:, 0] > 5) & (uv[:, 0] < 315) & (uv[:, 1] > 5) & (uv[:, 1] < 235)
+        obs_uv[i] = np.where(ok[:, None], uv + rng.normal(0, 0.3, (P, 2)), 0.0)
+        obs_mask[i] = ok
+    respawn = np.zeros((N, P), bool)
+    respawn[RESPAWN_FRAME, RESPAWN_SLOT] = True
+    ground = np.ones((N, P), bool)
+    ground[:, -2:] = False  # two slots without a ground hint
+    return dict(gt=gt, cubes=cubes, meas9=meas9, bbox=bbox, quality=quality, has=has, obs_uv=obs_uv,
+                obs_mask=obs_mask, respawn=respawn, ground=ground)
+
+
+SCENE = _scene()
+
+
+def _frames(dt):
+    jd, td, _ = DTYPES[dt]
+    s = SCENE
+    bw = np.where(s["has"], BBOX_WEIGHT, 0.0)
+    jfr = jtracker.FrameInput(
+        meas=JCuboid.from_minimal(to_j(s["meas9"], jd)), quality=to_j(s["quality"], jd),
+        has_meas=to_j(s["has"]), active=jnp.ones((N,), bool),
+        bbox=to_j(s["bbox"], jd), bbox_weight=to_j(bw, jd),
+    )
+    tfr = ttracker.FrameInput(
+        meas=TCuboid.from_minimal(to_t(s["meas9"], td)), quality=to_t(s["quality"], td),
+        has_meas=to_t(s["has"]), active=torch.ones((N,), dtype=torch.bool),
+        bbox=to_t(s["bbox"], td), bbox_weight=to_t(bw, td),
+    )
+    first = s["gt"][0]
+    return jfr, tfr, JSE3.from_matrix(to_j(first, jd)), TSE3.from_matrix(to_t(first, td))
+
+
+def _tols(dt):
+    if dt == "f64":
+        return dict(pose=1e-6, pts=1e-6, chi2=1e-6)
+    return dict(pose=2e-3, pts=5e-2, chi2=2e-2)
+
+
+def check_every_frame(dt):
+    """Ten frames at W = 4 (frames 4-9 absorb into the prior), a respawned
+    slot at frame 6, ground hints on all but two slots: every leaf of the
+    carry (graph, CubePrior, PointState) after every frame.  JAX's carry
+    after frame 5 also crosses to the port as numpy (slam.convert) and the
+    port takes frames 6-9 from there."""
+    jd, td, _ = DTYPES[dt]
+    tol = _tols(dt)
+    jfr, tfr, jfirst, tfirst = _frames(dt)
+    s = SCENE
+    jstep = jax.jit(jtracker.make_windowed_point_step(W, to_j(K, jd), iterations=3, point_weight=0.3,
+                                                       soft_gate_alpha=1.0))
+    tstep = ttracker.make_windowed_point_step(W, to_t(K, td), iterations=3, point_weight=0.3,
+                                              soft_gate_alpha=1.0)
+    jc = (JGraph.empty(N, O, jd)._replace(K=to_j(K, jd)), JPrior.empty(O, jd),
+          jtracker.PointState.empty(N, P, jd))
+    tc = (TGraph.empty(N, O, td)._replace(K=to_t(K, td)), TPrior.empty(O, td),
+          ttracker.PointState.empty(N, P, td))
+    first_valid = None
+    handed = None  # the JAX carry after frame HANDOVER, continued by the port
+    for i in range(N):
+        jin = (jnp.asarray(i, jnp.int32), jax.tree.map(lambda a: a[i], jfr), jfirst,
+               to_j(s["obs_uv"][i], jd), to_j(s["obs_mask"][i]), to_j(s["respawn"][i]),
+               to_j(s["ground"][i]))
+        tin = (i, tree_map(lambda a: a[i], tfr), tfirst,
+               to_t(s["obs_uv"][i], td), to_t(s["obs_mask"][i]), to_t(s["respawn"][i]),
+               to_t(s["ground"][i]))
+        jc, (jchi2, jcubes) = jstep(jc, jin)
+        tc, (tchi2, tcubes) = tstep(tc, tin)
+        if handed is not None:
+            handed, _ = tstep(handed, tin)
+        if i == HANDOVER:
+            handed = state_from_numpy(
+                jax_tree_to_numpy(jc), "cpu", td, kind=(TGraph, TPrior, ttracker.PointState)
+            )
+        jt, tt = tree_np(jax.device_get(jc)), tree_np(tc)
+        (jg, jp, jps), (tg, tp, tps) = jt, tt
+        for k in ("frame_mask", "cube_valid", "odom_mask", "cube_meas_mask"):
+            np.testing.assert_array_equal(jg[k], tg[k], err_msg=f"frame {i} {k}")
+        assert_tree_close(jg["cam_Tcw"], tg["cam_Tcw"], atol=tol["pose"], path=f"frame {i} cam")
+        assert_tree_close(jg["cube"], tg["cube"], atol=tol["pose"], path=f"frame {i} cube")
+        np.testing.assert_array_equal(jp["valid"], tp["valid"], err_msg=f"frame {i}")
+        np.testing.assert_allclose(jp["H"], tp["H"], rtol=tol["chi2"], atol=tol["pose"] * 1e3)
+        np.testing.assert_array_equal(jps["obs_mask"], tps["obs_mask"], err_msg=f"frame {i}")
+        np.testing.assert_array_equal(jps["point_valid"], tps["point_valid"], err_msg=f"frame {i}")
+        np.testing.assert_allclose(jps["obs_uv"], tps["obs_uv"], atol=1e-4)
+        v = tps["point_valid"]
+        np.testing.assert_allclose(jps["points"][v], tps["points"][v], atol=tol["pts"])
+        np.testing.assert_allclose(float(jchi2), float(tchi2), rtol=tol["chi2"], atol=1e-6)
+        np.testing.assert_allclose(to_np(jcubes), to_np(tcubes), atol=tol["pose"] * 10)
+        if first_valid is None and v.any():
+            first_valid = i
+        if i == RESPAWN_FRAME:
+            # the respawned slot's history is gone; the other slots keep theirs
+            assert not tps["obs_mask"][:RESPAWN_FRAME, RESPAWN_SLOT].any()
+            assert tps["obs_mask"][:RESPAWN_FRAME, RESPAWN_SLOT + 1 :].any()
+    # points became valid on the third frame (min_obs = 3 observations):
+    # with the near-zero baseline of the first frames only the ground
+    # bootstrap can give them, and only ground-hinted slots were taken
+    # the carry crossed as numpy after frame HANDOVER ends where JAX ends
+    hg, hp, hps = tree_np(handed)
+    assert_tree_close(hg["cam_Tcw"], jg["cam_Tcw"], atol=tol["pose"])
+    np.testing.assert_array_equal(hps["point_valid"], jps["point_valid"])
+    np.testing.assert_array_equal(hp["valid"], jp["valid"])
+    back = state_to_numpy(handed)
+    assert isinstance(back, list) and set(back[2]) == {"obs_uv", "obs_mask", "points", "point_valid"}
+    assert first_valid == 2, first_valid
+    assert tps["point_valid"].sum() >= P // 2
+    assert tp["valid"].all(), "both objects in the prior"
+
+
+@pytest.mark.parametrize("dt", ["f64"])
+def test_windowed_point_step_every_frame(dt):
+    check_every_frame(dt)
