@@ -10,8 +10,13 @@ call — once re-optimising the full graph every frame (`main_path`), once as
 the fixed-lag smoother with a window of 16 frames (`windowed_path`) — then
 the KITTI driver (`kitti_path`: `run_kitti_frames`, the `cli kitti
 --pose-feedback --point-weight 0.3` configuration) over a synthetic 375x1242
-drive with six objects, checks the results, and prints one JSON object per
-phase.  The last line is
+drive with six objects, then the TUM dataset commands over the main path's
+world written in the reference's TUM folder layout: the two-phase driver
+(`tum_two_phase_path`: `run_online_slam` at `cli online --window 16
+--point-weight 0.3`), the offline replay of saved cuboids (`offline_path`)
+and the single-image proposal demo (`detect_cuboid`: `cli detect-cuboid
+--top-k 5 --sample-height --sample-roll-pitch` on frame 0); checks the
+results, and prints one JSON object per phase.  The last line is
 `{"ok": true, "device": {...}}`.  Any failing phase ends the script with a
 non-zero exit code; without a CUDA device it exits 1 and prints no result.
 Imports nothing of JAX.
@@ -19,9 +24,13 @@ Imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import multiprocessing
+import pathlib
 import sys
+import tempfile
 import time
 from concurrent.futures import ProcessPoolExecutor
 
@@ -32,15 +41,22 @@ if not torch.cuda.is_available():
     print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
     sys.exit(1)
 
+REPO = pathlib.Path(__file__).resolve().parent
+sys.path.insert(0, str(REPO / "tests"))  # tests/tum_parity.py: the worlds' writers (no JAX)
+
+from cube_slam_wu_tpu_torch import cli  # noqa: E402
 from cube_slam_wu_tpu_torch.ops import cuda_kernels  # noqa: E402
 from cube_slam_wu_tpu_torch.slam.online import run_online_frames, sequence_frames  # noqa: E402
-from cube_slam_wu_tpu_torch.slam.pipeline import run_kitti_frames  # noqa: E402
+from cube_slam_wu_tpu_torch.slam.pipeline import (  # noqa: E402
+    run_kitti_frames, run_offline_slam, run_online_slam,
+)
 from cube_slam_wu_tpu_torch.utils import hostsync  # noqa: E402
 from cube_slam_wu_tpu_torch.tools.cardtime import (  # noqa: E402
     g2_from_random, g2_from_rendered, nvidia_smi_line, time_ms,
 )
 from cube_slam_wu_tpu_torch.utils import synth  # noqa: E402
 from cube_slam_wu_tpu_torch.utils.metrics import ate_rmse  # noqa: E402
+from tum_parity import TILT_DEG, tilt, write_offline_files, write_world  # noqa: E402
 
 DEV = torch.device("cuda")
 
@@ -129,7 +145,10 @@ KITTI_CMP = {
 }
 KITTI_TILT_DEG = (0.4, 0.7)  # roll, pitch
 
-KERNEL_SHAPES = ((3, 480, 640), (1, 375, 1242), (4, 375, 1242), (2, 97, 131),
+# (B, H, W) of `edt_row_min`: the TUM paths' three boxes and detect-cuboid's
+# one box at three height samples, KITTI's one and four boxes, the two-phase
+# TUM driver's one box, and two shapes at the edges of what it takes.
+KERNEL_SHAPES = ((3, 480, 640), (1, 375, 1242), (4, 375, 1242), (1, 480, 640), (2, 97, 131),
                  (1, 40, cuda_kernels.MAX_WIDTH))
 # Directory of the JAX package that holds the TPU kernels (named in the
 # report only; nothing of it is imported).
@@ -165,10 +184,13 @@ def phase_kernels():
         worst = max(worst, err)
         if not torch.equal(out, ref):
             raise RuntimeError(f"edt_row_min != plain at {shape}: max abs err {err}")
-        ms = time_ms(lambda: cuda_kernels.edt_row_min(g2))
+        # the kernel's own time from a CUDA graph's replay; eagerly a launch
+        # shorter than the host's enqueue reads the host (kept beside it)
+        ms = time_ms(lambda: cuda_kernels.edt_row_min(g2), graph=True)
+        ms_eager = time_ms(lambda: cuda_kernels.edt_row_min(g2))
         plain_ms = time_ms(lambda: cuda_kernels.edt_row_min_plain(g2), launches=5, repeats=5)
         bound, by = edt_bound_ms(shape)
-        per_shape.append(dict(shape=list(shape), ms=ms, plain_ms=plain_ms,
+        per_shape.append(dict(shape=list(shape), ms=ms, ms_eager=ms_eager, plain_ms=plain_ms,
                               bound_ms=bound, bound_by=by, bit_equal=True))
     # no edge anywhere: values ~1e6, not exact integers
     empty = torch.full((1, 120, 200), 1e12, device=DEV)
@@ -326,17 +348,6 @@ def run_kitti(seq, n, device, dtype=torch.float32, on_frame=None, **overrides):
                             dtype=dtype, device=device, on_frame=on_frame, **kw)
 
 
-def tilt(T, roll_deg, pitch_deg):
-    """Pose(s) T with the camera turned by `roll_deg` about its optical axis
-    and `pitch_deg` about its x axis (the images stay as they are)."""
-    r, p = np.radians(roll_deg), np.radians(pitch_deg)
-    Rx = np.array([[1, 0, 0], [0, np.cos(p), -np.sin(p)], [0, np.sin(p), np.cos(p)]])
-    Rz = np.array([[np.cos(r), -np.sin(r), 0], [np.sin(r), np.cos(r), 0], [0, 0, 1]])
-    out = np.array(T, dtype=np.float64)
-    out[..., :3, :3] = out[..., :3, :3] @ Rx @ Rz
-    return out
-
-
 def kitti_drive(name, device):
     """One drive of KITTI_CMP on `device`."""
     world, m, dtype, _, kw = KITTI_CMP[name]
@@ -459,6 +470,221 @@ def phase_kitti(t_start):
     return launches
 
 
+# ---- the TUM dataset commands: two-phase online, offline, detect-cuboid ----
+
+# The two-phase driver (`run_online_slam`) over the main path's world written
+# in the reference's TUM folder layout, at the `cli online --window 16
+# --point-weight 0.3` command line: one object slot, one detection per frame,
+# Harris + ZNCC point tracks (128 corners) in the fixed-lag BA, the TUM
+# intrinsics the folder reader fixes, float32.
+TUM_SETTINGS = dict(window=16, point_weight=0.3)
+# ATE bound: 1.1x the JAX package's figure on the CPU on this very folder.
+# That figure depends on how the ZNCC point tracker breaks ties: on this
+# flat-shaded world straight edges make the correlation a plateau, and the
+# packages take different points of it at frame 4, each within float32
+# rounding of the best score in both packages (ROADMAP queue 3 entry 9,
+# tests/test_torch_pipeline_tum.py::test_zncc_ties_on_flat_shaded_edges).  In
+# float32 the JAX package reads 0.42551 m with its own rule (the first exact
+# maximum), 0.57193 m taking the first and 0.39406 m the last candidate within
+# 1e-5 of the best (tests/reference_ate_jax_two_phase.py 30 f32
+# first|first-near|last-near).  The bound is 1.1x the largest.
+ATE_TUM_JAX_F32_M = {"first": 0.42551, "first-near": 0.57193, "last-near": 0.39406}
+ATE_TUM_BOUND_M = 1.1 * max(ATE_TUM_JAX_F32_M.values())
+# the bit-equality reruns: 12 frames, at a window of 8 so that the point
+# tracks still run (they need a window shorter than the run)
+TUM_RERUN = dict(n_frames=12, window=8, point_weight=0.3)
+# The card against the CPU in float64 on the parity world of
+# tests/tum_parity.py (8 frames at 240x320, seed 1, tilted poses), one drive
+# per line; the line detector runs in float32 in every dtype, hence 1e-5 m,
+# the limit of the float64 parity tests against JAX for the same front end.
+TUM_CMP = {"defaults": dict(), "use_yaw_prior": dict(use_yaw_prior=True),
+           "refine_with_points": dict(refine_with_points=True)}
+TUM_CMP_LIMIT_M = 1e-5
+OFFLINE_CMP_LIMIT_M = 1e-6  # the offline replay, float64, card against CPU
+# detect-cuboid on frame 0 of the folder: its first detection, the world's
+# intrinsics and first pose (tilted as the parity world's) on the command line
+DETECT_FLAGS = ["--top-k", "5", "--sample-height", "--sample-roll-pitch"]
+DETECT_TIE = 1e-5  # ranks may trade places only within this final-score tie (float32)
+
+
+def write_tum_worlds(root):
+    """The main path's world in the TUM layout with its offline files, and
+    the parity world of the card-against-CPU drives; returns (folder, seq,
+    small folder, detect-cuboid argv without --out and --device)."""
+    seq = synth.make_sequence(n_frames=N_FRAMES, size=SIZE, n_objects=N_OBJECTS, seed=SEED)
+    folder = synth.write_tum_sequence(seq, root / "tum")
+    write_offline_files(seq, folder, seed=SEED)
+    small = write_world(root / "tum_small")[0]
+    det = seq.detections[0][0]
+    np.savetxt(root / "pose0.txt", tilt(seq.T_wc[0], *TILT_DEG))
+    K = seq.K
+    argv = ["detect-cuboid", "--image", str(folder / "raw_imgs" / "0000_rgb_raw.jpg"),
+            "--bbox", ",".join(repr(float(v)) for v in (det[0] - 1.0, det[1] - 1.0, det[2], det[3])),
+            "--calib", ",".join(repr(float(v)) for v in (K[0, 0], K[1, 1], K[0, 2], K[1, 2])),
+            "--pose", str(root / "pose0.txt"), *DETECT_FLAGS]
+    return folder, seq, small, argv
+
+
+def tum_cpu_drives(folder, small, detect_argv, out_dir):
+    """The CPU side of the TUM commands' card-against-CPU checks (run in a
+    child process): the two-phase drives of TUM_CMP, the float64 offline
+    replay, detect-cuboid."""
+    torch.set_num_threads(CPU_THREADS)
+    two_phase = {name: run_online_slam(small, dtype=torch.float64, device="cpu", **kw)
+                 for name, kw in TUM_CMP.items()}
+    offline = run_offline_slam(folder, dtype=torch.float64, device="cpu")
+    with contextlib.redirect_stdout(io.StringIO()):
+        detect = cli.main([*detect_argv, "--out", str(out_dir / "cpu"), "--device", "cpu"])
+    return two_phase, offline, detect
+
+
+def phase_tum_two_phase(folder, seq, small, pool_result, t_start):
+    """Drive the two-phase driver on the card (device=None) over the 30-frame
+    480x640 folder with the launch counts set to 0 just before and read just
+    after; check the result; return the phase's launch counts."""
+    n = N_FRAMES
+    frames_with_det = sum(1 for d in seq.detections if len(d) > 0)
+    # warm-up on the card (the point tracks need a window shorter than the run)
+    run_online_slam(folder, n_frames=4, window=2, point_weight=0.3)
+    torch.cuda.synchronize()
+
+    cuda_kernels.reset_launch_counts()
+    sync0 = hostsync.snapshot()
+    t0 = time.perf_counter()
+    res = run_online_slam(folder, **TUM_SETTINGS)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    sync1 = hostsync.snapshot()
+    launches = dict(cuda_kernels.LAUNCHES)
+    shape = cuda_kernels.LAUNCH_SHAPES.get("edt_row_min")
+    syncs = {k: (sync1[k] - sync0[k]) / n for k in sync1}
+
+    traj = res.traj_Twc_xyzq
+    if not (np.isfinite(traj).all() and np.isfinite(res.cube_history).all()):
+        raise RuntimeError("tum_two_phase_path: trajectory or cuboids not finite")
+    if traj.shape != (n, 7) or res.cube_history.shape != (n, 1, 9):
+        raise RuntimeError("tum_two_phase_path: unexpected output shapes")
+    if not res.cube_valid.all():
+        raise RuntimeError("tum_two_phase_path: the object slot never spawned")
+    if launches["edt_row_min"] < frames_with_det - len(res.frontend_report.no_valid_proposal):
+        raise RuntimeError(f"tum_two_phase_path: edt_row_min launched {launches['edt_row_min']} "
+                           f"times for {frames_with_det} frames with detections")
+    ate = ate_rmse(traj[:, :3], seq.T_wc[:n, :3, 3])
+    if not ate < ATE_TUM_BOUND_M:
+        raise RuntimeError(f"tum_two_phase_path: ATE {ate} m above the bound {ATE_TUM_BOUND_M} m")
+
+    # two shortened reruns on the card: bit-equal in every output and counter
+    again = [run_online_slam(folder, device="cuda", **TUM_RERUN) for _ in range(2)]
+    for what in ("traj_Twc_xyzq", "cubes_minimal", "cube_valid", "chi2", "cube_history"):
+        if not np.array_equal(getattr(again[0], what), getattr(again[1], what)):
+            raise RuntimeError(f"tum_two_phase_path: two runs on the card differ in {what}")
+    if again[0].frontend_report != again[1].frontend_report:
+        raise RuntimeError("tum_two_phase_path: two runs on the card differ in their counters")
+
+    # the card against the CPU (asked for by name: not a fallback)
+    card = {name: run_online_slam(small, dtype=torch.float64, device="cuda", **kw)
+            for name, kw in TUM_CMP.items()}
+    cpu = pool_result()[0]
+    cmp, failed = {}, []
+    for name in TUM_CMP:
+        diff = float(np.abs(card[name].traj_Twc_xyzq[:, :3] - cpu[name].traj_Twc_xyzq[:, :3]).max())
+        cmp[name + "_m"] = diff
+        if not (diff < TUM_CMP_LIMIT_M and card[name].frontend_report == cpu[name].frontend_report
+                and np.array_equal(card[name].cube_valid, cpu[name].cube_valid)):
+            failed.append(name)
+    if failed:
+        raise RuntimeError(f"tum_two_phase_path: card and CPU differ in {failed}: {cmp}")
+
+    emit({"phase": "tum_two_phase_path", "n_frames": n, "size": list(SIZE),
+          "settings": TUM_SETTINGS, "seconds": seconds, "ms_per_frame": seconds * 1e3 / n,
+          "syncs_per_frame": syncs["syncs"], "bytes_up_per_frame": syncs["h2d_bytes"],
+          "bytes_down_per_frame": syncs["d2h_bytes"],
+          "ate_m": ate, "ate_bound_m": ATE_TUM_BOUND_M,
+          "ate_jax_cpu_f32_m_by_tie_rule": ATE_TUM_JAX_F32_M,
+          "report": res.frontend_report.counters(), "cube_valid": res.cube_valid.tolist(),
+          "chi2_last": float(res.chi2[-1]), "rerun": TUM_RERUN, "rerun_bit_equal": True,
+          "cpu_vs_card_float64_240x320_m": cmp, "cpu_vs_card_limit_m": TUM_CMP_LIMIT_M,
+          "launches": launches, "edt_row_min_launch_shape": shape,
+          "frames_with_detections": frames_with_det,
+          "seconds_total": time.perf_counter() - t_start})
+    return launches
+
+
+def phase_offline(folder, seq, pool_result, t_start):
+    """The offline replay on the card (device=None) over the folder's saved
+    cuboids, float32, then the card against the CPU in float64."""
+    cuda_kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = run_offline_slam(folder)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(cuda_kernels.LAUNCHES)
+    n = N_FRAMES
+    if res.traj_Twc_xyzq.shape != (n, 7) or res.cube_history.shape != (n, 1, 9):
+        raise RuntimeError("offline_path: unexpected output shapes")
+    if not (np.isfinite(res.traj_Twc_xyzq).all() and np.isfinite(res.cube_history).all()):
+        raise RuntimeError("offline_path: trajectory or cuboids not finite")
+    card64 = run_offline_slam(folder, dtype=torch.float64, device="cuda")
+    cpu64 = pool_result()[1]
+    diff = float(np.abs(card64.traj_Twc_xyzq[:, :3] - cpu64.traj_Twc_xyzq[:, :3]).max())
+    if not diff < OFFLINE_CMP_LIMIT_M:
+        raise RuntimeError(f"offline_path: card and CPU differ by {diff} m in float64")
+    emit({"phase": "offline_path", "n_frames": n, "seconds": seconds,
+          "ms_per_frame": seconds * 1e3 / n,
+          "ate_m": ate_rmse(res.traj_Twc_xyzq[:, :3], seq.T_wc[:n, :3, 3]),
+          "cube_minimal": res.cube_minimal.tolist(), "chi2_last": float(res.chi2[-1]),
+          "cpu_vs_card_float64_m": diff, "cpu_vs_card_limit_m": OFFLINE_CMP_LIMIT_M,
+          "launches": launches, "seconds_total": time.perf_counter() - t_start})
+    return launches
+
+
+def phase_detect_cuboid(argv, out_dir, pool_result, t_start):
+    """`cli detect-cuboid` on the card (the default device) with the launch
+    counts set to 0 just before and read just after; its ranks and winner
+    against the CPU's."""
+    cuda_kernels.reset_launch_counts()
+    cuda_kernels.LAUNCH_SHAPES.clear()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as text:
+        card = cli.main([*argv, "--out", str(out_dir / "card")])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(cuda_kernels.LAUNCHES)
+    shape = cuda_kernels.LAUNCH_SHAPES.get("edt_row_min")
+    cpu = pool_result()[2]
+    res, ref = card["result"], cpu["result"]
+    if not res.valid.any():
+        raise RuntimeError("detect_cuboid: no valid proposal")
+    # the same hypotheses in the same ranks; two ranks may trade places only
+    # where their final scores tie within DETECT_TIE
+    cpu_best = list(cpu["best"])
+    order = [cpu_best.index(i) if i in cpu_best else -1 for i in card["best"]]
+    ties_ok = all(q >= 0 and abs(cpu["final"][q] - cpu["final"][r]) <= DETECT_TIE
+                  for r, q in enumerate(order))
+    if not ties_ok:
+        raise RuntimeError(f"detect_cuboid: ranks differ: card {card['best'].tolist()} "
+                           f"CPU {cpu['best'].tolist()}")
+    for f in ("valid", "box_config_type"):
+        if not np.array_equal(getattr(res, f), getattr(ref, f)[order]):
+            raise RuntimeError(f"detect_cuboid: {f} differs between card and CPU")
+    errs = {f: float(np.abs(getattr(res, f) - getattr(ref, f)[order]).max())
+            for f in ("pos", "scale", "rotY")}
+    if not max(errs.values()) < 1e-4:
+        raise RuntimeError(f"detect_cuboid: card and CPU differ: {errs}")
+    if launches["edt_row_min"] < 1 or shape != (3,) + SIZE:
+        raise RuntimeError(f"detect_cuboid: edt_row_min launched {launches['edt_row_min']} "
+                           f"times at {shape}, expected (3, 480, 640) (one box, 3 height samples)")
+    emit({"phase": "detect_cuboid", "flags": DETECT_FLAGS, "seconds": seconds,
+          "ranks_grid_index": card["best"].tolist(), "winner_grid_index": int(card["best"][0]),
+          "valid": res.valid.tolist(), "cpu_vs_card": errs,
+          "winner": {"pos": res.pos[0].tolist(), "scale": res.scale[0].tolist(),
+                     "rotY": float(res.rotY[0])},
+          "printed_lines": len(text.getvalue().splitlines()),
+          "launches": launches, "edt_row_min_launch_shape": shape,
+          "seconds_total": time.perf_counter() - t_start})
+    return launches
+
+
 def main() -> int:
     t_start = time.perf_counter()
     smi = nvidia_smi_line()
@@ -483,16 +709,26 @@ def main() -> int:
     launches_win = phase_path("windowed_path", seq, WINDOW, ATE_WINDOW_REFERENCE_M, t_start)
     launches_kitti = phase_kitti(t_start)
 
+    # ---- the TUM dataset commands; their CPU sides run in a child process ---
+    with tempfile.TemporaryDirectory() as tmp, \
+            ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn")) as pool:
+        root = pathlib.Path(tmp)
+        folder, seq, small, detect_argv = write_tum_worlds(root)
+        cpu_side = pool.submit(tum_cpu_drives, folder, small, detect_argv, root)
+        launches_tum = phase_tum_two_phase(folder, seq, small, cpu_side.result, t_start)
+        launches_offline = phase_offline(folder, seq, cpu_side.result, t_start)
+        launches_detect = phase_detect_cuboid(detect_argv, root, cpu_side.result, t_start)
+
+    by_path = {"main_path": launches_main, "windowed_path": launches_win,
+               "kitti_path": launches_kitti, "tum_two_phase_path": launches_tum,
+               "offline_path": launches_offline, "detect_cuboid": launches_detect}
     main_shape = per_shape[0]
     emit({"kernels": [{
         "name": "edt_row_min", "route": "cuda",
         "source": "cube_slam_wu_tpu_torch/csrc/edt_row_min.cu",
         "replaces": TPU_PACKAGE_DIR + "/ops/pallas_kernels.py:71",
-        "launches": (launches_main["edt_row_min"] + launches_win["edt_row_min"]
-                     + launches_kitti["edt_row_min"]),
-        "launches_by_path": {"main_path": launches_main["edt_row_min"],
-                             "windowed_path": launches_win["edt_row_min"],
-                             "kitti_path": launches_kitti["edt_row_min"]},
+        "launches": sum(v["edt_row_min"] for v in by_path.values()),
+        "launches_by_path": {k: v["edt_row_min"] for k, v in by_path.items()},
         "max_abs_err": worst_err,
         "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
         "bound_ms": main_shape["bound_ms"], "bound_by": main_shape["bound_by"],

@@ -1,16 +1,26 @@
-"""Command line of the PyTorch/CUDA port.
+"""Command line of the PyTorch/CUDA port: the JAX package's commands and
+flags, with `--device` and `--float64` on each.
 
-  python -m cube_slam_wu_tpu_torch.cli online --base <object_slam/data> --out out/ [--window 16] [--device cpu]
+  python -m cube_slam_wu_tpu_torch.cli offline --base <object_slam/data> --out out/ [--save-cloud N]
+  python -m cube_slam_wu_tpu_torch.cli online --base <object_slam/data> --out out/
+      [--window 16 [--point-weight 0.3]] [--checkpoint ck.npz] [--fused] [--save-cloud N]
+  python -m cube_slam_wu_tpu_torch.cli detect-cuboid --image img.jpg --bbox x,y,w,h
+      [--edges e.txt] [--calib fx,fy,cx,cy] [--pose T_wc.txt] [--top-k 5]
+      [--sample-height] [--sample-roll-pitch] --out out/
   python -m cube_slam_wu_tpu_torch.cli kitti --seq <dir> --detections <dir> [--poses poses.txt]
-      [--pose-feedback [--point-weight 0.3]] [--window 16] [--float64] [--device cpu] --out out/
+      [--pose-feedback [--point-weight 0.3]] [--window 16] --out out/
 
-`online` always runs the fused per-frame step (slam/online.py); `--window W`
-makes it the fixed-lag step, which optimises the trailing W frames only.
-`kitti` runs the KITTI driver (slam/pipeline.py) over a KITTI-odometry-layout
-sequence (image_0/*.png, calib.txt, times.txt, per-frame `x y w h prob`
-detection txts) and writes the same files as the JAX package's `kitti`
-command.  Both run on the GPU unless `--device cpu` is given, and fail when
-there is no GPU.
+`offline` replays the saved cuboids of a TUM-layout folder
+(slam/pipeline.py::run_offline_slam).  `online` runs the two-phase driver
+(slam/pipeline.py::run_online_slam: the front-end pass, then the incremental
+BA), or with `--fused` the fused per-frame step (slam/online.py); `--window W`
+makes either a fixed-lag smoother over the trailing W frames.
+`detect-cuboid` is the single-image proposal demo.  `kitti` runs the KITTI
+driver over a KITTI-odometry-layout sequence.  Each writes the files the JAX
+package's command writes for the same command line (the TUM commands:
+output_cam_poses.txt, output_obj_poses.txt, trajectory_top_view.png and,
+with --save-cloud, map_cloud.ply).  Everything runs on the GPU unless
+`--device cpu` is given, and fails when there is no GPU.
 """
 
 from __future__ import annotations
@@ -20,52 +30,273 @@ import pathlib
 
 import numpy as np
 
+# detect-cuboid's intrinsics without --calib (fx, fy, cx, cy): the reference's
+# detect_3d_cuboid demo camera
+DEMO_CALIB = (529.5, 529.5, 365.0, 265.0)
 
-def _write_outputs(out_dir, fr, truth):
+
+def _dtype(args):
+    import torch
+
+    return torch.float64 if args.float64 else torch.float32
+
+
+def _write_outputs(out_dir, result, truth):
+    """The TUM commands' files: the trajectory, object 0's per-frame history
+    (or its final cuboid when the driver keeps none), the top view, then the
+    ATE and RPE against the truth rows."""
+    from PIL import Image
+
     from cube_slam_wu_tpu_torch.utils import io as uio
+    from cube_slam_wu_tpu_torch.utils import viz
     from cube_slam_wu_tpu_torch.utils.metrics import ate_rmse, rpe_rmse
 
     out_dir = pathlib.Path(out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
-    n = len(fr.traj_Twc_xyzq)
     uio.write_tum_trajectory(
-        out_dir / "output_cam_poses.txt", truth[:n, 0], fr.traj_Twc_xyzq
+        out_dir / "output_cam_poses.txt", result.timestamps, result.traj_Twc_xyzq
     )
-    np.savetxt(out_dir / "output_obj_poses.txt", fr.cubes_minimal, fmt="%.6f")
-    ate = ate_rmse(fr.traj_Twc_xyzq[:, :3], truth[:n, 1:4])
+    obj_rows = (
+        result.cube_history[:, 0, :]
+        if result.cube_history is not None
+        else result.cube_minimal[None]
+    )
+    np.savetxt(out_dir / "output_obj_poses.txt", obj_rows, fmt="%.6f")
+    img = viz.trajectory_top_view(result.traj_Twc_xyzq[:, :3], truth[:, 1:4])
+    Image.fromarray(img).save(out_dir / "trajectory_top_view.png")
+    ate = ate_rmse(result.traj_Twc_xyzq[:, :3], truth[:, 1:4])
     print(f"ATE RMSE vs truth: {ate:.4f} m")
-    if n > 1:
-        rpe_t, rpe_r = rpe_rmse(fr.traj_Twc_xyzq, truth[:n, 1:8])
+    if len(truth) > 1:
+        rpe_t, rpe_r = rpe_rmse(result.traj_Twc_xyzq, truth[:, 1:8])
         print(f"RPE RMSE (delta=1): {rpe_t:.4f} m / {rpe_r:.4f} deg")
     print(f"outputs written to {out_dir}")
 
 
-def cmd_online(args):
+def _write_point_cloud(out_dir, base, result, every: int):
+    """Merged colored point cloud from the dataset's RGB-D pairs at the
+    OPTIMIZED camera poses (rviz cloud topic analogue, main_obj.cpp:73-101;
+    depth scaling + calib at main_obj.cpp:340-345)."""
     import torch
+    from PIL import Image
 
-    from cube_slam_wu_tpu_torch.slam.online import run_online_slam_fused
+    from cube_slam_wu_tpu_torch.core.se3 import SE3
+    from cube_slam_wu_tpu_torch.slam.online import TUM_K
     from cube_slam_wu_tpu_torch.utils import io as uio
+    from cube_slam_wu_tpu_torch.utils import viz
 
+    base = pathlib.Path(base)
+    T_wc = SE3.from_xyzq(torch.as_tensor(result.traj_Twc_xyzq, dtype=torch.float64)).matrix().numpy()
+    all_xyz, all_rgb = [], []
+    for i in range(0, len(result.timestamps), every):
+        depth_path = base / "depth_imgs" / f"{i:04d}_depth_raw.png"
+        rgb_path = base / "raw_imgs" / f"{i:04d}_rgb_raw.jpg"
+        if not depth_path.exists() or not rgb_path.exists():
+            continue
+        depth = np.asarray(Image.open(depth_path))
+        xyz, cols = viz.depth_to_point_cloud(uio.load_image_rgb(rgb_path), depth, TUM_K, T_wc[i])
+        all_xyz.append(xyz)
+        all_rgb.append(cols)
+    if not all_xyz:
+        print("point cloud skipped: no depth_imgs/ found")
+        return
+    viz.write_ply(
+        pathlib.Path(out_dir) / "map_cloud.ply", np.concatenate(all_xyz), np.concatenate(all_rgb)
+    )
+    print(f"point cloud ({sum(len(a) for a in all_xyz)} pts) -> {out_dir}/map_cloud.ply")
+
+
+def _need_base(args):
+    """Fail without the card (unless --device names another) or without the
+    folder, before reading any file."""
+    from cube_slam_wu_tpu_torch import resolve_device
+
+    resolve_device(args.device)
     if not pathlib.Path(args.base).is_dir():
         raise SystemExit(f"error: --base {args.base!r} is not a directory")
-    fr = run_online_slam_fused(
-        args.base,
-        n_frames=args.frames,
-        dtype=torch.float64 if args.float64 else torch.float32,
-        max_objects=args.max_objects,
-        max_detections=args.max_detections,
-        iterations=args.iterations,
-        bbox_edge_weight=args.bbox_edge_weight,
-        window=args.window if args.window and args.window > 0 else None,
-        device=args.device,
+
+
+def cmd_offline(args):
+    from cube_slam_wu_tpu_torch.slam.pipeline import run_offline_slam
+    from cube_slam_wu_tpu_torch.utils import io as uio
+
+    _need_base(args)
+    result = run_offline_slam(
+        args.base, iterations=args.iterations, dtype=_dtype(args), device=args.device
     )
     truth = uio.read_number_txt(pathlib.Path(args.base) / "truth_cam_poses.txt")
-    print(
-        f"fused: {fr.syncs_per_frame:.1f} host reads/frame, "
-        f"{fr.bytes_up_per_frame / 1e6:.2f} MB up / "
-        f"{fr.bytes_down_per_frame:.0f} B down; report {fr.report}"
+    _write_outputs(args.out, result, truth)
+    if args.save_cloud:
+        _write_point_cloud(args.out, args.base, result, args.save_cloud)
+
+
+def cmd_online(args):
+    from cube_slam_wu_tpu_torch.slam.pipeline import SlamOutput, run_online_slam
+    from cube_slam_wu_tpu_torch.utils import hostsync
+    from cube_slam_wu_tpu_torch.utils import io as uio
+
+    _need_base(args)
+    window = args.window if args.window and args.window > 0 else None
+    truth = uio.read_number_txt(pathlib.Path(args.base) / "truth_cam_poses.txt")
+    if args.fused:
+        from cube_slam_wu_tpu_torch.slam.online import run_online_slam_fused
+
+        if args.point_weight or args.checkpoint:
+            raise SystemExit(
+                "error: --fused supports the default online config "
+                "(no --point-weight / --checkpoint yet); drop --fused for those"
+            )
+        fr = run_online_slam_fused(
+            args.base,
+            n_frames=args.frames,
+            dtype=_dtype(args),
+            max_objects=args.max_objects,
+            max_detections=args.max_detections or args.max_objects,
+            iterations=args.iterations,
+            bbox_edge_weight=args.bbox_edge_weight,
+            window=window,
+            device=args.device,
+        )
+        n = len(fr.traj_Twc_xyzq)
+        result = SlamOutput(
+            traj_Twc_xyzq=fr.traj_Twc_xyzq,
+            cube_minimal=fr.cubes_minimal[0],
+            chi2=fr.chi2,
+            timestamps=truth[:n, 0],
+            cubes_minimal=fr.cubes_minimal,
+            cube_valid=fr.cube_valid,
+        )
+        print(
+            f"fused: {fr.syncs_per_frame:.1f} host reads/frame, "
+            f"{fr.bytes_up_per_frame / 1e6:.2f} MB up / "
+            f"{fr.bytes_down_per_frame:.0f} B down; report {fr.report}"
+        )
+        _write_outputs(args.out, result, truth[:n])
+        return
+    before = hostsync.snapshot()
+    result = run_online_slam(
+        args.base,
+        n_frames=args.frames,
+        iterations=args.iterations,
+        dtype=_dtype(args),
+        bbox_edge_weight=args.bbox_edge_weight,
+        window=window,
+        point_weight=args.point_weight,
+        max_objects=args.max_objects,
+        max_detections=args.max_detections,
+        checkpoint_path=args.checkpoint or None,
+        checkpoint_every=args.checkpoint_every,
+        device=args.device,
     )
-    _write_outputs(args.out, fr, truth)
+    n = len(result.timestamps)
+    reads = hostsync.snapshot()["syncs"] - before["syncs"]
+    print(f"two-phase: {reads / n:.1f} host reads/frame; frontend: "
+          f"{result.frontend_report.summary()}")
+    _write_outputs(args.out, result, truth[:n])
+    if args.save_cloud:
+        _write_point_cloud(args.out, args.base, result, args.save_cloud)
+
+
+def cmd_detect_cuboid(args):
+    """The single-image proposal demo.  Prints the winner (and the ranks with
+    --top-k > 1), writes cuboid_proposal.jpg, and returns the proposals as
+    numpy with their grid indices (`best`) and final scores (`final`)."""
+    if not pathlib.Path(args.image).is_file():
+        raise SystemExit(f"error: --image {args.image!r} not found")
+    import torch
+    from PIL import Image
+
+    from cube_slam_wu_tpu_torch import resolve_device
+    from cube_slam_wu_tpu_torch.ops.detect import detect_line_segments
+    from cube_slam_wu_tpu_torch.ops.proposal import ProposalConfig, detect_cuboid_single
+    from cube_slam_wu_tpu_torch.utils import hostsync
+    from cube_slam_wu_tpu_torch.utils import io as uio
+    from cube_slam_wu_tpu_torch.utils import viz
+
+    dev = resolve_device(args.device)
+    dtype = _dtype(args)
+    gray = hostsync.push(uio.load_image_gray(args.image), dev, dtype)
+    if args.edges:
+        edges = uio.read_number_txt(args.edges)
+        L = max(128, int(2 ** np.ceil(np.log2(len(edges) + 1))))
+        lines = np.zeros((L, 4))
+        lines[: len(edges)] = edges[:, :4]
+        mask = np.zeros(L, bool)
+        mask[: len(edges)] = True
+        lines, mask = hostsync.push(lines, dev, dtype), hostsync.push(mask, dev)
+    else:
+        lines, mask = detect_line_segments(gray)
+    fx, fy, cx, cy = _parse_floats(args.calib, 4, "calib") if args.calib else DEMO_CALIB
+    K = np.array([[fx, 0, cx], [0, fy, cy], [0, 0, 1.0]])
+    T_wc = (
+        np.loadtxt(args.pose)
+        if args.pose
+        else np.array(
+            [
+                [1, 0.0011, 0.0004, 0],
+                [0, -0.3376, 0.9413, 0],
+                [0.0011, -0.9413, -0.3376, 1.35],
+                [0, 0, 0, 1.0],
+            ]
+        )
+    )
+    bbox = np.asarray(_parse_floats(args.bbox, 4, "bbox"))
+    cfg = ProposalConfig(
+        max_lines=int(lines.shape[0]),
+        sample_cam_roll_pitch=args.sample_roll_pitch,
+        sample_bbox_height=args.sample_height,
+        nominal_skew_ratio=args.skew,
+        max_cuboid_num=max(args.top_k, 1),
+    )
+    res, internals = detect_cuboid_single(
+        gray, *(hostsync.push(a, dev, dtype) for a in (K, T_wc, bbox)), lines, mask, cfg,
+        return_internals=True,
+    )
+    best, final = internals["best"], internals["final"]
+    host = hostsync.pull((*res, best, final[best]))
+    res = type(res)(*host[: len(res)])
+    out = dict(result=res, best=host[-2], final=host[-1])
+    if args.top_k > 1:
+        for r in range(args.top_k):
+            print(
+                f"rank {r}: valid={bool(res.valid[r])} "
+                f"pos={np.round(res.pos[r], 4)} "
+                f"scale={np.round(res.scale[r], 4)} "
+                f"rotY={float(res.rotY[r]):.4f} "
+                f"err={float(res.normalized_error[r]):.4f}"
+            )
+        # the winner drives the overlay
+        res = type(res)(*(a if f == "cap_overflow" else a[0] for f, a in zip(res._fields, res)))
+    print(f"valid: {bool(res.valid)}")
+    print(f"pos:   {np.round(res.pos, 4)}")
+    print(f"scale: {np.round(res.scale, 4)}")
+    print(f"rotY:  {float(res.rotY):.4f}")
+    print(f"config:{res.box_config_type}")
+    out_dir = pathlib.Path(args.out)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    img = viz.draw_cuboid(
+        uio.load_image_rgb(args.image),
+        res.corners_2d,
+        int(res.box_config_type[0]),
+        int(res.box_config_type[1]),
+    )
+    Image.fromarray(img).save(out_dir / "cuboid_proposal.jpg")
+    print(f"overlay -> {out_dir}/cuboid_proposal.jpg")
+    return out
+
+
+def _parse_floats(text, n, name):
+    parts = text.split(",")
+    try:
+        vals = [float(v) for v in parts]
+    except ValueError:
+        raise SystemExit(
+            f"error: --{name} expects {n} comma-separated numbers, got {text!r}"
+        )
+    if len(vals) != n:
+        raise SystemExit(
+            f"error: --{name} expects {n} comma-separated numbers, got {len(vals)}"
+        )
+    return vals
 
 
 def cmd_kitti(args):
@@ -136,10 +367,26 @@ def cmd_kitti(args):
     print(f"outputs written to {out_dir}")
 
 
+def _device_flags(parser):
+    parser.add_argument("--float64", action="store_true")
+    parser.add_argument("--device", default=None,
+                        help="torch device; default: the GPU (fails without one)")
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="cube_slam_wu_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
-    pn = sub.add_parser("online", help="fused online mono object SLAM")
+
+    po = sub.add_parser("offline", help="offline-mode SLAM over a dataset folder")
+    po.add_argument("--base", required=True)
+    po.add_argument("--out", default="out")
+    po.add_argument("--iterations", type=int, default=5)
+    po.add_argument("--save-cloud", type=int, default=0, metavar="N",
+                    help="dump map_cloud.ply from every Nth RGB-D pair (0 = off)")
+    _device_flags(po)
+    po.set_defaults(fn=cmd_offline)
+
+    pn = sub.add_parser("online", help="full online mono SLAM")
     pn.add_argument("--base", required=True)
     pn.add_argument("--out", default="out")
     pn.add_argument("--frames", type=int, default=None)
@@ -148,12 +395,25 @@ def build_parser() -> argparse.ArgumentParser:
                     help="2D bbox projection-edge weight (0 = reference-"
                          "parity: 3D cuboid edges only)")
     pn.add_argument("--window", type=int, default=0,
-                    help="sliding BA window in frames (0 = full graph)")
+                    help="sliding BA window (0 = full-graph re-optimisation)")
+    pn.add_argument("--point-weight", type=float, default=0.0,
+                    help="point-landmark reprojection weight in the joint "
+                         "windowed BA (0 = off; needs --window)")
+    pn.add_argument("--checkpoint", default="",
+                    help="front-end checkpoint npz: saved every "
+                         "--checkpoint-every frames, resumed if it exists; "
+                         "a completed one acts as a front-end cache for "
+                         "backend-setting sweeps")
+    pn.add_argument("--checkpoint-every", type=int, default=25)
+    pn.add_argument("--fused", action="store_true",
+                    help="the fused per-frame step (slam/online.py) instead "
+                         "of the two-phase driver")
+    pn.add_argument("--save-cloud", type=int, default=0, metavar="N",
+                    help="dump map_cloud.ply from every Nth RGB-D pair (0 = off)")
     pn.add_argument("--max-objects", type=int, default=1)
-    pn.add_argument("--max-detections", type=int, default=1)
-    pn.add_argument("--float64", action="store_true")
-    pn.add_argument("--device", default=None,
-                    help="torch device; default: the GPU (fails without one)")
+    pn.add_argument("--max-detections", type=int, default=None,
+                    help="detections per frame (default: --max-objects)")
+    _device_flags(pn)
     pn.set_defaults(fn=cmd_online)
 
     pk = sub.add_parser("kitti", help="multi-object online SLAM over a KITTI-layout sequence")
@@ -199,16 +459,33 @@ def build_parser() -> argparse.ArgumentParser:
                     help="checkpoint npz: saved every --checkpoint-every "
                          "frames, resumed if it exists")
     pk.add_argument("--checkpoint-every", type=int, default=25)
-    pk.add_argument("--float64", action="store_true")
-    pk.add_argument("--device", default=None,
-                    help="torch device; default: the GPU (fails without one)")
+    _device_flags(pk)
     pk.set_defaults(fn=cmd_kitti)
+
+    pc = sub.add_parser("detect-cuboid", help="single-image cuboid proposal")
+    pc.add_argument("--image", required=True)
+    pc.add_argument("--bbox", required=True, help="x,y,w,h")
+    pc.add_argument("--edges", default=None, help="precomputed edges txt")
+    pc.add_argument("--calib", default=None, help="fx,fy,cx,cy")
+    pc.add_argument("--pose", default=None, help="4x4 T_wc txt")
+    pc.add_argument("--skew", type=float, default=1.0)
+    pc.add_argument("--sample-roll-pitch", action="store_true")
+    pc.add_argument("--top-k", type=int, default=1,
+                    help="return the K best-ranked proposals "
+                         "(max_cuboid_num ObjectSet semantics)")
+    pc.add_argument("--sample-height", action="store_true",
+                    help="sample 3 bbox-height expansions (whether_sample_bbox_height)")
+    pc.add_argument("--out", default="out")
+    _device_flags(pc)
+    pc.set_defaults(fn=cmd_detect_cuboid)
     return p
 
 
 def main(argv=None):
+    """Run one command; returns what the command returns (detect-cuboid: its
+    proposals)."""
     args = build_parser().parse_args(argv)
-    args.fn(args)
+    return args.fn(args)
 
 
 if __name__ == "__main__":

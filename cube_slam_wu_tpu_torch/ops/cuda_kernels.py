@@ -46,8 +46,10 @@ MAX_WIDTH = 2048  # the row of `a` is staged in shared memory
 EXACT_LIMIT = 2**24
 
 # Launch counts, one per kernel: a wrapper adds one where it launches its
-# kernel and nowhere else.
+# kernel and nowhere else.  LAUNCH_SHAPES holds the input shape of each
+# kernel's last launch.
 LAUNCHES = {"edt_row_min": 0}
+LAUNCH_SHAPES: dict = {}
 # What the last build did: the nvcc command and the seconds it took.
 BUILD_LOG: dict = {}
 
@@ -195,6 +197,7 @@ def edt_row_min(g2: torch.Tensor) -> torch.Tensor:
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.edt_row_min_launch(g2.data_ptr(), out.data_ptr(), rows, w, stream)
     LAUNCHES["edt_row_min"] += 1
+    LAUNCH_SHAPES["edt_row_min"] = tuple(g2.shape)
     if err != 0:
         raise RuntimeError(f"edt_row_min: kernel launch failed (cudaError {err})")
     return out

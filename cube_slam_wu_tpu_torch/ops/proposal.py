@@ -42,7 +42,7 @@ from cube_slam_wu_tpu_torch.core import camera as cam
 from cube_slam_wu_tpu_torch.core import rotations as rotu
 from cube_slam_wu_tpu_torch.ops import image as image_ops
 from cube_slam_wu_tpu_torch.ops import lines as line_ops
-from cube_slam_wu_tpu_torch.ops.topk import first_argmax, first_argmin
+from cube_slam_wu_tpu_torch.ops.topk import first_argmax, first_argmin, stable_top_k
 
 
 # ---------------------------------------------------------------------------
@@ -77,9 +77,9 @@ class ProposalConfig:
     pre_merge_dist_thre: float = 20.0
     pre_merge_angle_thre_deg: float = 5.0
     edge_length_threshold: float = 30.0
-    yaw_prior_weight: float = 1.0
-    average_top_k: int = 1  # >1 is not ported yet (raises NotImplementedError)
-    sample_bbox_height: bool = False  # True is not ported yet
+    yaw_prior_weight: float = 1.0  # score penalty per rad of mod-90 yaw drift
+    average_top_k: int = 1  # >1: average the k best hypotheses (see below)
+    sample_bbox_height: bool = False  # 3 bbox-height samples {0, r/2, r}
     # float32-stable winner selection: among hypotheses within `rank_margin`
     # of the best final score, deterministically pick the SMALLEST flat grid
     # index.  With margin >> f32 score noise (~1e-5), the f32 and f64 paths
@@ -115,7 +115,15 @@ class ProposalConfig:
     # in ProposalResult.cap_overflow and the online step's exact fallback (which
     # zeroes every cap) recomputes without it.  0 disables.
     merge_cap: int = 128
-    max_cuboid_num: int = 1  # >1 is not ported yet
+    # Return the N best-ranked proposals per box instead of only the winner
+    # (the reference's ObjectSet semantics: max_cuboid_num ranked cuboids,
+    # detect_3d_cuboid.h:95-96, partial-sort box_proposal_detail.cpp:801-838;
+    # its drivers set 1).  >1 gives every ProposalResult field an axis of size
+    # max_cuboid_num after the box axis, ranked best-first (lower grid index
+    # first on equal scores), with per-rank `valid` (False when fewer than N
+    # hypotheses survive).  Ranking is the plain skew-penalised final score;
+    # rank_margin and average_top_k apply only to the single-winner path.
+    max_cuboid_num: int = 1
 
     @property
     def rp_count(self) -> int:
@@ -123,12 +131,9 @@ class ProposalConfig:
 
 
 def _check_config(cfg: ProposalConfig) -> None:
-    if cfg.sample_bbox_height:
-        raise NotImplementedError("ProposalConfig.sample_bbox_height is not ported yet")
-    if cfg.max_cuboid_num > 1:
-        raise NotImplementedError("ProposalConfig.max_cuboid_num > 1 is not ported yet")
-    if cfg.average_top_k > 1:
-        raise NotImplementedError("ProposalConfig.average_top_k > 1 is not ported yet")
+    """What the SLAM drivers can take: one proposal per box."""
+    if cfg.max_cuboid_num != 1:
+        raise ValueError("the SLAM drivers take one proposal per box: max_cuboid_num must be 1")
 
 
 class ProposalResult(NamedTuple):
@@ -670,16 +675,42 @@ def hypothesis_grid(
 
     `box` is the floored (left, top, w, h, right) as (B, 1) columns;
     `top_xs`/`top_ok` are (B, T); `rp_valid` masks padded roll/pitch rows.
-    `lines` (L, 4) must already be left-right-aligned.  Returns
-    (hblock, aux): hblock is a dict of (B, ..., nC*Hc) arrays, aux the (Hc,)
-    yaw/roll/pitch broadcasts and the config count.
+    `lines` (L, 4) must already be left-right-aligned.
+
+    With `cfg.sample_bbox_height` every box is run at S = 3 bottom
+    expansions {0, round(r/2), r} (box_proposal_detail.cpp:160-172), each
+    with its own ROI, merged lines, Canny mask and distance map; the B*S
+    (box, sample) pairs are the rows of one batch, box-major, so all their
+    distance maps come from one EDT kernel launch.  Returns (hblock, aux):
+    hblock is a dict of (B*S, ..., nC*Hc) arrays, aux the (Hc,)
+    yaw/roll/pitch broadcasts, the config count nC and the sample count S.
     """
     dtype = gray.dtype
     dev = gray.device
     img_h, img_w = gray.shape
     left, top, w, h, right = box
-    B = left.shape[0]
+    B0 = left.shape[0]
     RP = roll_flat.shape[0]
+
+    # bbox-height samples (box_proposal_detail.cpp:160-172) as extra rows
+    if cfg.sample_bbox_height:
+        rng = torch.clamp(torch.clamp(h - 90.0, max=20.0), min=20.0)
+        rng = torch.minimum(rng, img_h - top - h - 1.0)
+        down_expand = torch.cat([torch.zeros_like(rng), torch.round(rng / 2.0), rng], dim=-1)
+        sample_valid = torch.cat(
+            [torch.ones_like(rng, dtype=torch.bool), rng > 10.0,
+             torch.ones_like(rng, dtype=torch.bool)], dim=-1,
+        )
+    else:
+        down_expand = torch.zeros_like(h)
+        sample_valid = torch.ones_like(h, dtype=torch.bool)
+    S = down_expand.shape[-1]
+    B = B0 * S
+    left, top, w, h, right = (v.repeat_interleave(S, dim=0) for v in (left, top, w, h, right))
+    top_xs = top_xs.repeat_interleave(S, dim=0)
+    top_ok = top_ok.repeat_interleave(S, dim=0)
+    down_expand = down_expand.reshape(B, 1)
+    sample_valid = sample_valid.reshape(B, 1)
 
     # rebuild camera products per (roll, pitch): rotation replaced
     R_new = rotu.euler_zyx_to_rot(roll_flat, pitch_flat, euler_raw[2].expand(RP))
@@ -735,9 +766,9 @@ def hypothesis_grid(
         config_ids.append(2)
     nC = len(config_ids)
 
-    # ---- the (single) bbox-height sample: ROI, lines, distance map, the
-    # full hypothesis grid (box_proposal_detail.cpp:200-799) ----------------
-    h_expan = h
+    # ---- per (box, height sample): ROI, lines, distance map, the full
+    # hypothesis grid (box_proposal_detail.cpp:200-799) --------------------
+    h_expan = h + down_expand
     down_expan = top + h_expan
     diag = torch.sqrt(w * w + h_expan * h_expan)
 
@@ -819,7 +850,7 @@ def hypothesis_grid(
         cx, cy, vp1_pos, valid = _corner_chain(
             vp, c1x, c1y, geom, config_id, cfg.shorted_edge_thre
         )
-        valid = valid & top_ok_f & rp_valid_f
+        valid = valid & top_ok_f & sample_valid & rp_valid_f
         angle = _edge_angle_score(ang_a, ang_b, has, cx, cy, config_id)
         px, py, pz, lh, wh, hh = _lift_soa(cx, cy, Kinv, Twc_soa, plane)
         cap = cfg.dist_gather_cap if config_id == 1 else cfg.dist_gather_cap2
@@ -886,7 +917,7 @@ def hypothesis_grid(
     out["dist_map"] = dist_map
     out["m_lines"] = m_lines
     out["m_mask"] = m_mask
-    aux = dict(yaw_f=yaw_f, roll_f=roll_f, pitch_f=pitch_f, nC=nC)
+    aux = dict(yaw_f=yaw_f, roll_f=roll_f, pitch_f=pitch_f, nC=nC, S=S)
     return out, aux
 
 
@@ -895,30 +926,46 @@ def _fuse_and_rank(
     aux,
     cfg: ProposalConfig,
     euler_raw,
+    yaw_prior=None,
     return_internals: bool = False,
     extras=None,
 ):
-    """Stage B of the proposal engine: score fusion
+    """Stage B of the proposal engine: per-height-sample score fusion
     (fuse_normalize_scores_v2, object_3d_util.cpp:726-837) followed by the
     global skew-penalised ranking (box_proposal_detail.cpp:801-838), per box.
+
+    `hblock` holds one row per (box, height sample) (see `hypothesis_grid`);
+    fusion runs per row, then each box's samples are laid side by side on
+    the hypothesis axis, sample-major, as the JAX package concatenates them.
+    `yaw_prior` (scalar or (B,)) adds the mod-90-degree yaw penalty.
     """
     b = hblock
-    nC = aux["nC"]
-    # cap saturation, summed over config blocks
-    cap_overflow = torch.sum(b["cap_overflow"], dim=-1).to(torch.int32)  # (B,)
+    nC, S = aux["nC"], aux["S"]
+    B = b["valid"].shape[0] // S
+    # score fusion runs PER height sample (box_proposal_detail.cpp:715)
     scores, kept = fuse_normalized_scores(
         b["dist"], b["angle"], b["valid"],
         cfg.weight_vp_angle, cfg.whether_normalize_two_errors,
     )
 
-    cx_f, cy_f = b["cx"], b["cy"]  # (B, 8, H)
-    vp1_f, valid_f = b["vp1"], b["valid"]
-    dist_f, angle_f, cfgid_f = b["dist"], b["angle"], b["cfg_id"]
-    pos_x, pos_y, pos_z = b["pos_x"], b["pos_y"], b["pos_z"]
-    len_h, wid_h, hei_h = b["len_h"], b["wid_h"], b["hei_h"]
-    yaw_grid = torch.cat([aux["yaw_f"]] * nC)
-    roll_grid = torch.cat([aux["roll_f"]] * nC)
-    pitch_grid = torch.cat([aux["pitch_f"]] * nC)
+    def cat(x):  # (B*S, ..., X) -> (B, ..., S*X)
+        lead = tuple(x.shape[1:-1])
+        x = x.reshape((B, S) + lead + (x.shape[-1],)).movedim(1, -2)
+        return x.reshape((B,) + lead + (S * x.shape[-1],))
+
+    # cap saturation, summed over config blocks and height samples
+    cap_overflow = torch.sum(b["cap_overflow"].reshape(B, -1), dim=-1).to(torch.int32)
+    cx_f, cy_f = cat(b["cx"]), cat(b["cy"])  # (B, 8, H)
+    vp1_f, valid_f = cat(b["vp1"]), cat(b["valid"])
+    dist_f, angle_f, cfgid_f = cat(b["dist"]), cat(b["angle"]), cat(b["cfg_id"])
+    pos_x, pos_y, pos_z = cat(b["pos_x"]), cat(b["pos_y"]), cat(b["pos_z"])
+    len_h, wid_h, hei_h = cat(b["len_h"]), cat(b["wid_h"]), cat(b["hei_h"])
+    scores, kept = cat(scores), cat(kept)
+    yaw_grid = torch.cat([aux["yaw_f"]] * (nC * S))
+    roll_grid = torch.cat([aux["roll_f"]] * (nC * S))
+    pitch_grid = torch.cat([aux["pitch_f"]] * (nC * S))
+    dtype = scores.dtype
+    dev = scores.device
     inf = float("inf")
 
     scale_ok = (
@@ -938,50 +985,114 @@ def _fuse_and_rank(
     # weight_skew_error at box_proposal_detail.cpp:813 AND again at :820
     # (its own comment flags it).  Kept for winner-level parity.
     final = scores + cfg.weight_skew_error * skew_err
+    if yaw_prior is not None:
+        # temporal smoothness prior on the object yaw (the reference leaves
+        # this as a TODO, box_proposal_detail.cpp:178).  Distance is modulo
+        # 90 deg (min_log_error resolves the front face downstream).
+        prior = torch.as_tensor(yaw_prior, dtype=dtype, device=dev).reshape(-1, 1)
+        dy = torch.abs(yaw_grid - prior)
+        dy = torch.remainder(dy + math.pi / 4, math.pi / 2) - math.pi / 4
+        final = final + cfg.yaw_prior_weight * torch.abs(dy)
     final = torch.where(kept & scale_ok & torch.isfinite(scores), final, inf)
+    yaw_bh = yaw_grid.expand(B, -1)  # per box: average_top_k writes into it
+
+    def mk_result(idx):
+        """ProposalResult for the hypotheses at flat grid indices `idx`
+        ((B,) or (B, N)), read from the (possibly winner-averaged) fields."""
+        shape = tuple(idx.shape)
+        flat = idx.reshape(B, -1)
+
+        def at(a):  # (B, H) -> idx.shape
+            return torch.gather(a, 1, flat).reshape(shape)
+
+        b_vp1 = at(vp1_f)
+        reorder = torch.where(
+            (b_vp1 == 1)[..., None],
+            torch.tensor(_REORDER_VP_LEFT, device=dev),
+            torch.tensor(_REORDER_VP_RIGHT, device=dev),
+        )  # idx.shape + (8,)
+        idx8 = flat[:, None, :].expand(B, 8, flat.shape[1])
+
+        def corners(c):  # (B, 8, H) -> idx.shape + (8,), reordered
+            c8 = torch.gather(c, 2, idx8).transpose(1, 2).reshape(shape + (8,))
+            return torch.gather(c8, -1, reorder)
+
+        b_pos = torch.stack([at(pos_x), at(pos_y), at(pos_z)], dim=-1)
+        b_yaw = at(yaw_bh)
+        b_scale = torch.stack([at(len_h), at(wid_h), at(hei_h)], dim=-1)
+        return ProposalResult(
+            valid=torch.isfinite(at(final)),
+            pos=b_pos,
+            rotY=b_yaw,
+            scale=b_scale,
+            box_config_type=torch.stack(
+                [at(cfgid_f).to(torch.int32), b_vp1.to(torch.int32)], dim=-1
+            ),
+            corners_2d=torch.stack([corners(cx_f), corners(cy_f)], dim=-2),
+            corners_3d_world=_similarity_corners_3d(b_pos, b_yaw, b_scale),
+            edge_distance_error=at(dist_f),
+            edge_angle_error=at(angle_f),
+            normalized_error=at(scores),
+            skew_ratio=at(skew),
+            camera_roll_delta=roll_grid[idx] - euler_raw[0],
+            camera_pitch_delta=pitch_grid[idx] - euler_raw[1],
+            cap_overflow=cap_overflow,
+        )
+
+    if cfg.max_cuboid_num > 1:
+        # ranked ObjectSet: the N best hypotheses by final score, best first
+        # (box_proposal_detail.cpp:801-838 partial-sort semantics)
+        top_idx = stable_top_k(-final, cfg.max_cuboid_num)[1]  # (B, N)
+        result = mk_result(top_idx)
+        if not return_internals:
+            return result
+        return result, dict(final=final, best=top_idx, scores=scores, valid=valid_f)
 
     H_total = final.shape[-1]
     best = first_argmin(final)  # (B,)
     if cfg.rank_margin > 0.0:
         f_best = torch.gather(final, 1, best[:, None])
         within = final <= f_best + cfg.rank_margin
-        ids = torch.arange(H_total, device=final.device)
+        ids = torch.arange(H_total, device=dev)
         best = torch.where(within, ids, H_total).amin(dim=-1).clamp(max=H_total - 1)
+    best_valid = torch.isfinite(torch.gather(final, 1, best[:, None])[:, 0])
 
-    def at(a):  # (B, H) -> (B,)
-        return torch.gather(a, 1, best[:, None])[:, 0]
+    if cfg.average_top_k > 1:
+        # variance reduction beyond the reference's argmin-top-1: average the
+        # k best hypotheses' 9-DoF states, each canonicalised to the best
+        # one's front face first (rotate yaw by the nearest multiple of
+        # 90 deg, swapping l/w on odd multiples — the equivalence
+        # min_log_error uses, g2o_Object.h:104-114).  The averages are
+        # written at the winner's index of fresh copies of the fields.
+        top_idx = stable_top_k(-final, cfg.average_top_k)[1]  # (B, k)
 
-    b_vp1 = at(vp1_f)
-    dev = final.device
-    reorder = torch.where(
-        (b_vp1 == 1)[:, None],
-        torch.tensor(_REORDER_VP_LEFT, device=dev),
-        torch.tensor(_REORDER_VP_RIGHT, device=dev),
-    )  # (B, 8)
-    best8 = best[:, None, None].expand(-1, 8, 1)
-    cxb = torch.gather(torch.gather(cx_f, 2, best8)[..., 0], 1, reorder)
-    cyb = torch.gather(torch.gather(cy_f, 2, best8)[..., 0], 1, reorder)
-    b_pos = torch.stack([at(pos_x), at(pos_y), at(pos_z)], dim=-1)
-    b_yaw = yaw_grid[best]
-    b_scale = torch.stack([at(len_h), at(wid_h), at(hei_h)], dim=-1)
-    result = ProposalResult(
-        valid=torch.isfinite(at(final)),
-        pos=b_pos,
-        rotY=b_yaw,
-        scale=b_scale,
-        box_config_type=torch.stack([at(cfgid_f).to(torch.int32), b_vp1.to(torch.int32)], dim=-1),
-        corners_2d=torch.stack([cxb, cyb], dim=-2),
-        corners_3d_world=_similarity_corners_3d(b_pos, b_yaw, b_scale),
-        edge_distance_error=at(dist_f),
-        edge_angle_error=at(angle_f),
-        normalized_error=at(scores),
-        skew_ratio=at(skew),
-        camera_roll_delta=roll_grid[best] - euler_raw[0],
-        camera_pitch_delta=pitch_grid[best] - euler_raw[1],
-        cap_overflow=cap_overflow,
-    )
+        def g(a):
+            return torch.gather(a, 1, top_idx)
+
+        wgt = torch.isfinite(g(final)).to(dtype)
+        wgt = wgt / torch.clamp(torch.sum(wgt, dim=-1, keepdim=True), min=1.0)
+        yaw_k = g(yaw_bh)
+        r = torch.round(-(yaw_k - yaw_k[:, :1]) / (math.pi / 2.0))
+        yaw_adj = yaw_k + r * (math.pi / 2.0)
+        odd = torch.remainder(r, 2.0) != 0
+        len_k = torch.where(odd, g(wid_h), g(len_h))
+        wid_k = torch.where(odd, g(len_h), g(wid_h))
+
+        def put(a, v):  # a copy of `a` with the weighted mean of v at `best`
+            return a.scatter(1, best[:, None], torch.sum(wgt * v, dim=-1, keepdim=True))
+
+        pos_x = put(pos_x, g(pos_x))
+        pos_y = put(pos_y, g(pos_y))
+        pos_z = put(pos_z, g(pos_z))
+        len_h = put(len_h, len_k)
+        wid_h = put(wid_h, wid_k)
+        hei_h = put(hei_h, g(hei_h))
+        yaw_bh = put(yaw_bh, yaw_adj)
+
+    result = mk_result(best)._replace(valid=best_valid)
     if not return_internals:
         return result
+    first = slice(None, None, S)  # sample 0 of each box
     internals = dict(
         corners=torch.stack([cx_f, cy_f], dim=-1).permute(0, 2, 1, 3),  # (B, H, 8, 2)
         valid=valid_f,
@@ -992,12 +1103,12 @@ def _fuse_and_rank(
         final=final,
         vp1_pos=vp1_f,
         cfg_id=cfgid_f,
-        yaw_grid=yaw_grid,
+        yaw_grid=yaw_bh if cfg.average_top_k > 1 else yaw_grid,
         pos=torch.stack([pos_x, pos_y, pos_z], dim=-1),
         scale=torch.stack([len_h, wid_h, hei_h], dim=-1),
-        merged_lines=hblock["m_lines"],
-        merged_mask=hblock["m_mask"],
-        dist_map=hblock["dist_map"],
+        merged_lines=hblock["m_lines"][first],
+        merged_mask=hblock["m_mask"][first],
+        dist_map=hblock["dist_map"][first],
         yaws=extras["yaws"],
         top_xs=extras["top_xs"],
         top_ok=extras["top_ok"],
@@ -1026,13 +1137,18 @@ def detect_cuboids(
     kernel launch).  gray (H, W) float; K (3, 3); T_wc (4, 4); bboxes (B, 4)
     [x y w h] (0-based pixels); bbox_mask (B,); lines (L, 4) padded segments
     with line_mask (L,).  Returns a ProposalResult with leading axis B whose
-    `valid` is ANDed with bbox_mask.  All tensors live on gray's device.
+    `valid` is ANDed with bbox_mask; with `cfg.max_cuboid_num` N > 1 every
+    field has a second axis N, ranks best first, and `valid` is (B, N).
+    `yaw_prior` (scalar or (B,) tensor, or None) penalises each hypothesis by
+    `cfg.yaw_prior_weight` times its yaw distance, modulo 90 deg, from the
+    prior.  All tensors live on gray's device.
 
-    Mirrors detect_cuboid (box_proposal_detail.cpp:65-861).
+    Mirrors detect_cuboid (box_proposal_detail.cpp:65-861).  Bbox-height
+    sampling (`cfg.sample_bbox_height`, whether_sample_bbox_height in the
+    reference) runs the grid at 3 bottom expansions {0, r/2, r} with
+    per-sample score fusion; both reference drivers default it off
+    (detect_3d_cuboid/src/main.cpp:68, object_slam/src/main_obj.cpp:498).
     """
-    _check_config(cfg)
-    if yaw_prior is not None:
-        raise NotImplementedError("detect_cuboids(yaw_prior=...) is not ported yet")
     dtype = gray.dtype
     dev = gray.device
     bboxes = bboxes.to(dtype)
@@ -1076,10 +1192,12 @@ def detect_cuboids(
         euler_raw, roll_flat, pitch_flat, rp_valid, yaws, top_xs, top_ok,
     )
     out = _fuse_and_rank(
-        hblock, aux, cfg, euler_raw, return_internals,
+        hblock, aux, cfg, euler_raw, yaw_prior, return_internals,
         extras=dict(yaws=yaws, top_xs=top_xs, top_ok=top_ok),
     )
     res = out[0] if return_internals else out
+    if cfg.max_cuboid_num > 1:  # valid is (B, N): mask per box
+        bbox_mask = bbox_mask[:, None]
     res = res._replace(valid=res.valid & bbox_mask)
     return (res, out[1]) if return_internals else res
 
@@ -1109,7 +1227,7 @@ def detect_cuboid_single(
     if not return_internals:
         return ProposalResult(*(drop(t) for t in out))
     res, internals = out
-    shared = ("yaw_grid", "yaws")
+    shared = ("yaws",)
     return (
         ProposalResult(*(drop(t) for t in res)),
         {k: (v if k in shared else drop(v)) for k, v in internals.items()},

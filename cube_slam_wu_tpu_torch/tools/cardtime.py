@@ -24,21 +24,35 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, launches: int = 20, repeats: int = 7, warmup: int = 3) -> float:
+def time_ms(fn, launches: int = 20, repeats: int = 7, warmup: int = 3,
+            graph: bool = False) -> float:
     """Time of one call: `launches` calls enqueued back to back between one
-    pair of CUDA events (so the card's queue stays full and the host's
-    per-call cost is hidden where the kernel is longer than it), divided by
-    the count; median over `repeats` such runs."""
+    pair of CUDA events, divided by the count; median over `repeats` such
+    runs.  Eagerly, a call shorter than the host's cost of enqueuing it reads
+    that cost.  With `graph` the calls are captured once in a CUDA graph and
+    each run replays it, so the time is the kernels' own on the card (`fn`
+    must be capturable: no host read, no synchronisation)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+
+    def run():
+        for _ in range(launches):
+            fn()
+
+    if graph:
+        captured = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(captured):
+            run()
+        run = captured.replay
+        run()
+        torch.cuda.synchronize()
     times = []
     for _ in range(repeats):
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         start.record()
-        for _ in range(launches):
-            fn()
+        run()
         stop.record()
         stop.synchronize()
         times.append(start.elapsed_time(stop) / launches)

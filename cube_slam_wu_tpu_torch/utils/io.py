@@ -41,6 +41,13 @@ def load_image_gray(path) -> np.ndarray:
     return np.floor(gray + 0.5)
 
 
+def load_image_rgb(path) -> np.ndarray:
+    """Load an image as (H, W, 3) uint8 RGB.  Needs Pillow."""
+    from PIL import Image
+
+    return np.asarray(Image.open(path).convert("RGB"), dtype=np.uint8)
+
+
 def write_tum_trajectory(path, timestamps, poses_xyzq) -> None:
     """Write TUM rows `t x y z qx qy qz qw` (same schema as the reference's
     output_cam_poses.txt, main_obj.cpp:305-336)."""

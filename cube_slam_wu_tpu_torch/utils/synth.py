@@ -340,3 +340,28 @@ def write_kitti_sequence(seq: SynthSequence, out_dir, detections_subdir="detecti
         Image.fromarray(img).save(img_dir / f"{i:06d}.png")
         np.savetxt(det_dir / f"{i:06d}.txt", det, fmt="%.3f")
     return out, det_dir, poses_path
+
+
+def write_tum_sequence(seq: SynthSequence, out_dir):
+    """Write the sequence in the reference's object_slam/data layout
+    (raw_imgs/%04d_rgb_raw.jpg, filter_2d_obj_txts/%04d_yolo2_0.15.txt rows
+    [x y w h conf], truth_cam_poses.txt TUM rows), consumable by
+    slam.pipeline.run_online_slam and slam.online.run_online_slam_fused.
+    The files are byte-equal to the JAX package's writer (Pillow's JPEG
+    encoder at its defaults, the same number formats; the poses are
+    converted in float64).  Returns the base dir."""
+    import torch
+    from PIL import Image
+
+    from cube_slam_wu_tpu_torch.core.se3 import SE3
+
+    out = pathlib.Path(out_dir)
+    (out / "raw_imgs").mkdir(parents=True, exist_ok=True)
+    (out / "filter_2d_obj_txts").mkdir(parents=True, exist_ok=True)
+    xyzq = SE3.from_matrix(torch.as_tensor(np.asarray(seq.T_wc, np.float64))).to_xyzq().numpy()
+    rows = np.column_stack([np.asarray(seq.timestamps)[: len(xyzq)], xyzq])
+    np.savetxt(out / "truth_cam_poses.txt", rows, fmt="%.9f")
+    for i, (img, det) in enumerate(zip(seq.images, seq.detections)):
+        Image.fromarray(img).save(out / "raw_imgs" / f"{i:04d}_rgb_raw.jpg")
+        np.savetxt(out / "filter_2d_obj_txts" / f"{i:04d}_yolo2_0.15.txt", det, fmt="%.3f")
+    return out

@@ -22,6 +22,7 @@ which the port avoids by design.
 import numpy as np
 
 from cube_slam_wu_tpu_torch.utils import synth as tsynth
+from tum_parity import tilt
 
 N_FRAMES, SIZE, N_OBJECTS, SEED = 8, (240, 320), 3, 6
 WORLD = dict(n_frames=N_FRAMES, n_objects=N_OBJECTS, size=SIZE, speed=0.5, curve=0.002,
@@ -51,15 +52,6 @@ def port_full_run(drive):
     seq_dir, det_dir, poses, _ = drive
     kw = {k: v for k, v in RESUME_KW.items() if k != "checkpoint_every"}
     return tpipe.run_kitti_slam(seq_dir, det_dir, poses, dtype=torch.float64, device="cpu", **kw)
-
-
-def tilt(T, roll_deg=0.4, pitch_deg=0.7):
-    r, p = np.radians(roll_deg), np.radians(pitch_deg)
-    Rx = np.array([[1, 0, 0], [0, np.cos(p), -np.sin(p)], [0, np.sin(p), np.cos(p)]])
-    Rz = np.array([[np.cos(r), -np.sin(r), 0], [np.sin(r), np.cos(r), 0], [0, 0, 1]])
-    out = np.array(T, dtype=np.float64)
-    out[..., :3, :3] = out[..., :3, :3] @ Rx @ Rz
-    return out
 
 
 def write_drive(root):

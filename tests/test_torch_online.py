@@ -263,15 +263,28 @@ def test_device_none_without_gpu_raises(seq):
     [
         dict(detect_cfg=DetectConfig(short_recovery=True)),
         dict(detect_cfg=DetectConfig(nfa_validation=True)),
-        dict(proposal_overrides=dict(sample_bbox_height=True)),
         dict(proposal_overrides=dict(max_cuboid_num=2)),
-        dict(proposal_overrides=dict(average_top_k=2)),
     ],
     ids=lambda kw: "-".join(f"{k}" for k in kw) + "-" + str(list(kw.values())[0])[:28],
 )
 def test_unported_online_options_raise(seq, kw):
-    with pytest.raises(NotImplementedError):
+    """The detector options are not ported yet; a ranked ObjectSet
+    (max_cuboid_num > 1) is refused by the step, which takes one proposal
+    per box (in the JAX package it fails on the shapes)."""
+    exc = ValueError if "proposal_overrides" in kw else NotImplementedError
+    with pytest.raises(exc):
         tonline.make_online_step(seq.K, seq.T_wc[0], N, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("over", [dict(sample_bbox_height=True), dict(average_top_k=3)],
+                         ids=["sample_bbox_height", "average_top_k"])
+def test_online_step_takes_the_proposal_options(seq, over):
+    """Height sampling and top-k averaging change the proposals the step
+    measures (their parity: tests/test_torch_proposal_options.py)."""
+    a = _port_mem(seq, n=2, proposal_overrides=over)
+    b = _port_mem(seq, n=2)
+    assert np.isfinite(a.traj_Twc_xyzq).all() and a.cube_valid.all()
+    assert not np.array_equal(a.cubes_minimal, b.cubes_minimal)
 
 
 def test_cli_online_on_cpu(folder, tmp_path, capsys):
@@ -279,7 +292,7 @@ def test_cli_online_on_cpu(folder, tmp_path, capsys):
 
     out = tmp_path / "out"
     cli.main([
-        "online", "--base", str(folder), "--out", str(out), "--frames", "2",
+        "online", "--fused", "--base", str(folder), "--out", str(out), "--frames", "2",
         "--max-objects", "3", "--max-detections", "3", "--device", "cpu",
     ])
     text = capsys.readouterr().out
@@ -289,8 +302,8 @@ def test_cli_online_on_cpu(folder, tmp_path, capsys):
     # the fixed-lag path through the command line: 4 frames, window 2
     out_w = tmp_path / "out_w"
     cli.main([
-        "online", "--base", str(folder), "--out", str(out_w), "--frames", "4", "--window", "2",
-        "--max-objects", "3", "--max-detections", "3", "--device", "cpu",
+        "online", "--fused", "--base", str(folder), "--out", str(out_w), "--frames", "4",
+        "--window", "2", "--max-objects", "3", "--max-detections", "3", "--device", "cpu",
     ])
     assert "ATE RMSE vs truth" in capsys.readouterr().out
     traj_w = tuio.read_number_txt(out_w / "output_cam_poses.txt")

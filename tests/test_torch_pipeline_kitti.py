@@ -1,7 +1,9 @@
 """Port parity: the KITTI driver (`run_kitti_slam`) interleaved with point
 landmarks (the production mode) against the JAX package's, both reading the
 same KITTI-layout files of a short synthetic drive (tests/kitti_parity.py);
-the entry points' device rule and the options not ported yet.
+the entry points' device rule and the options not ported yet (the yaw prior
+of the single-track front end is held against JAX in
+tests/test_torch_pipeline_tum.py).
 
 Tolerances: float64 1e-5 m on the trajectory (the ZNCC tracker runs in
 float32 in both packages; its positions agree to 2e-5 px), 1e-4 m on
@@ -41,11 +43,6 @@ def test_entry_points_need_the_card_unless_told():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="yaw_prior"):
-        tpipe._frontend_frames(
-            [(None, None)], 1, np.eye(3), np.eye(4), torch.float64, torch.device("cpu"),
-            max_objects=1, max_detections=1, use_yaw_prior=True,
-        )
     from cube_slam_wu_tpu_torch.ops.detect import DetectConfig
 
     with pytest.raises(NotImplementedError, match="short_recovery"):

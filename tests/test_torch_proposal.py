@@ -288,16 +288,3 @@ def test_detect_cuboids_batch_with_masked_box():
         tprop.ProposalConfig(**kw),
     )
     np.testing.assert_array_equal(to_np(single.pos), to_np(tres.pos[1]))
-
-
-def test_unported_proposal_options_raise():
-    s = SCENES["demo"]
-    args = [to_t(s["gray"]), to_t(s["K"]), to_t(s["T"]), to_t(s["bboxes"][0]),
-            to_t(s["lines"]), to_t(s["mask"])]
-    for kw in (dict(sample_bbox_height=True), dict(max_cuboid_num=2), dict(average_top_k=3)):
-        with pytest.raises(NotImplementedError):
-            tprop.detect_cuboid_single(*args, tprop.ProposalConfig(max_lines=16, **kw))
-    with pytest.raises(NotImplementedError):
-        tprop.detect_cuboid_single(
-            *args, tprop.ProposalConfig(max_lines=16), yaw_prior=torch.tensor(0.1)
-        )

@@ -153,3 +153,82 @@ def jax_run_online_frames(
         traj=np.array(traj), cubes=np.array(cubes), cube_valid=np.array(cube_valid),
         chi2=np.array([float(o[1].chi2) for o in outs]), report=report, states=states,
     )
+
+
+def cached_pair(folder, ck, tmp_path, **kw):
+    """Both packages' `run_online_slam` in float64 over the front end saved in
+    the completed checkpoint `ck` (either package's; each run on its own
+    copy): the back ends on the same measurements.  Returns (JAX SlamOutput,
+    the port's)."""
+    import shutil
+
+    from cube_slam_wu_tpu.slam import pipeline as jpipe
+    from cube_slam_wu_tpu_torch.slam import pipeline as tpipe
+
+    out = []
+    for name, run, extra in (("j", jpipe.run_online_slam, dict(dtype=jnp.float64)),
+                             ("p", tpipe.run_online_slam,
+                              dict(dtype=torch.float64, device="cpu"))):
+        copy = tmp_path / f"{name}_{ck.name}"
+        shutil.copy(ck, copy)
+        out.append(run(folder, checkpoint_path=copy, **kw, **extra))
+    return tuple(out)
+
+
+def run_cli_both(tmp_path, capsys, argv, port_flags=("--float64", "--device", "cpu")):
+    """The same command line through both packages' `cli.main`, each writing
+    into its own directory under `tmp_path` (the port's with `port_flags`).
+    Returns [(JAX out dir, its stdout), (port out dir, its stdout)]."""
+    from cube_slam_wu_tpu import cli as jcli
+    from cube_slam_wu_tpu_torch import cli as tcli
+
+    outs = []
+    for name, main, extra in (("jax", jcli.main, ()), ("port", tcli.main, port_flags)):
+        out = tmp_path / name
+        main([*argv, "--out", str(out), *extra])
+        outs.append((out, capsys.readouterr().out))
+    return outs
+
+
+def jax_driver_memo(monkeypatch, name, result, folder):
+    """Make the JAX package's `slam.pipeline.<name>` return `result`, a run
+    of that driver over `folder` with its defaults in float64 made earlier
+    in the test module, so that the JAX command line writes its files from
+    that run instead of computing it again.  Each call must be that call:
+    the same folder and every argument at its default, apart from the
+    checkpoint (which does not change the result) and a float64 dtype."""
+    import inspect
+    import pathlib
+
+    from cube_slam_wu_tpu.slam import pipeline as jpipe
+
+    sig = inspect.signature(getattr(jpipe, name))
+    want = sig.bind(folder)
+    want.apply_defaults()
+
+    def memo(*args, **kwargs):
+        got = sig.bind(*args, **kwargs)
+        got.apply_defaults()
+        for key, value in want.arguments.items():
+            have = got.arguments[key]
+            if key == "base_folder":
+                assert pathlib.Path(have) == pathlib.Path(value)
+            elif key == "dtype":
+                assert have in (None, jnp.float64) and jax.config.jax_enable_x64
+            elif not key.startswith("checkpoint"):
+                assert have == value, (key, have, value)
+        return result
+
+    monkeypatch.setattr(jpipe, name, memo)
+
+
+def assert_same_files(a, b, names):
+    """Every named file under directories `a` and `b` byte-equal."""
+    import filecmp
+
+    for f in names:
+        assert filecmp.cmp(a / f, b / f, shallow=False), f
+
+
+# the TUM commands' files (output_cam_poses.txt ... trajectory_top_view.png)
+TUM_FILES = ("output_cam_poses.txt", "output_obj_poses.txt", "trajectory_top_view.png")
