@@ -15,8 +15,13 @@ world written in the reference's TUM folder layout: the two-phase driver
 (`tum_two_phase_path`: `run_online_slam` at `cli online --window 16
 --point-weight 0.3`), the offline replay of saved cuboids (`offline_path`)
 and the single-image proposal demo (`detect_cuboid`: `cli detect-cuboid
---top-k 5 --sample-height --sample-roll-pitch` on frame 0); checks the
-results, and prints one JSON object per phase.  The last line is
+--top-k 5 --sample-height --sample-roll-pitch` on frame 0), and the line
+layer on that folder (`line_layer`: `cli detect-lines --short-recovery` and
+`cli match-lines` on frames 0 and 1, the detector variants at full size —
+plain, short-segment recovery, NFA gate, two octaves with their LBD codes
+matched k=2 — and the fused step with `DetectConfig(short_recovery=True)`
+over the main path's 30 frames); checks the results against the CPU and the
+JAX package's ATE, and prints one JSON object per phase.  The last line is
 `{"ok": true, "device": {...}}`.  Any failing phase ends the script with a
 non-zero exit code; without a CUDA device it exits 1 and prints no result.
 Imports nothing of JAX.
@@ -56,7 +61,9 @@ from cube_slam_wu_tpu_torch.tools.cardtime import (  # noqa: E402
 )
 from cube_slam_wu_tpu_torch.utils import synth  # noqa: E402
 from cube_slam_wu_tpu_torch.utils.metrics import ate_rmse  # noqa: E402
-from tum_parity import TILT_DEG, tilt, write_offline_files, write_world  # noqa: E402
+from tum_parity import (  # noqa: E402
+    TILT_DEG, segment_distances, segment_match_fraction, tilt, write_offline_files, write_world,
+)
 
 DEV = torch.device("cuda")
 
@@ -200,12 +207,13 @@ def phase_kernels():
     return per_shape, worst
 
 
-def run_path(seq, n, device, window=None, capacity=CAPACITY, on_frame=None, dtype=torch.float32):
+def run_path(seq, n, device, window=None, capacity=CAPACITY, on_frame=None, dtype=torch.float32,
+             **step_kwargs):
     return run_online_frames(
         sequence_frames(seq.images, seq.detections, N_OBJECTS),
         seq.K, seq.T_wc[0], n, dtype=dtype,
         max_objects=N_OBJECTS, max_detections=N_OBJECTS, capacity=capacity,
-        window=window, device=device, on_frame=on_frame,
+        window=window, device=device, on_frame=on_frame, **step_kwargs,
     )
 
 
@@ -685,6 +693,241 @@ def phase_detect_cuboid(argv, out_dir, pool_result, t_start):
     return launches
 
 
+# ---- the line layer: the line commands, the detector variants, and the fused
+# step with the two-pass detector ----
+
+# The fused step with DetectConfig(short_recovery=True) over the main path's
+# sequence: its ATE bound is 1.1x the JAX package's on the CPU on this very
+# sequence and configuration, 2.10703 m in float32
+# (tests/reference_ate_jax.py 30 short-recovery: 90 measurements, 3/3 slots,
+# last chi2 47.24; fixed before the path first ran on a card).
+ATE_RECOVER_JAX_M = 2.10703
+RECOVER_RERUN_FRAMES = 12
+# The card against the CPU on the first 4 frames of the main path's
+# sequence rendered at 240x320, in float64; the line detector runs in
+# float32 in every dtype (1e-5 m, as the other drives where the float32
+# detector feeds float64 proposals).  A world made for 4 frames only
+# (make_sequence(n_frames=4)) parts by 4.8e-4 m with the plain detector as
+# with this one: line endpoints 1.5e-5 px apart flip a proposal's winner at
+# frame 1 (ROADMAP queue 3 entry 10).
+RECOVER_CMP = dict(n_frames=4, size=(240, 320), limit_m=1e-5)
+# the detector as a set between card and CPU (an atan2 ulp moves a pixel's
+# bin): counts within 5 %, >= 95 % of either side matched within 0.5 px;
+# match-lines: >= 90 % of either side's matched pairs found on the other
+SET_COUNT_TOL, SET_MATCH_MIN, PAIR_MATCH_MIN = 0.05, 0.95, 0.90
+LINE_TIMING_REPEATS = 3
+
+
+def recover_cfg():
+    from cube_slam_wu_tpu_torch.ops.detect import DetectConfig
+
+    return DetectConfig(short_recovery=True)
+
+
+def line_variants(gray0, gray1):
+    """The detector variants at full size, each a call on frame 0's image on
+    its device returning (lines, mask, extra counts as tensors): the plain
+    detector, the two-pass recovery, the NFA gate, and two octaves with their
+    octave descriptors and codes matched k=2 against frame 1's."""
+    from cube_slam_wu_tpu_torch.ops import detect as tdet
+    from cube_slam_wu_tpu_torch.ops import lbd as tlbd
+
+    def octave_codes(gray):
+        lines, mask, octs = tdet.detect_line_segments_octaves(gray, n_octaves=2, return_octaves=True)
+        desc, valid = tlbd.lbd_descriptors_octaves(gray, lines, mask, octs, n_octaves=2)
+        return lines, mask, tlbd.binarize_lbd(desc), valid & mask
+
+    _, _, words1, valid1 = octave_codes(gray1)
+
+    def octaves():
+        lines, mask, words, valid = octave_codes(gray0)
+        _, _, ok = tlbd.knn_match(words, words1, valid, valid1, k=2)
+        return lines, mask, {"knn_valid": ok.sum()}
+
+    def plain(cfg=None):
+        return (*tdet.detect_line_segments(gray0, cfg or tdet.DetectConfig()), {})
+
+    def recover():
+        return (*tdet.detect_line_segments_recover(gray0, recover_cfg()), {})
+
+    return {"plain": plain, "short_recovery": recover,
+            "nfa_validation": lambda: plain(tdet.DetectConfig(nfa_validation=True)),
+            "octaves": octaves}
+
+
+def line_images(folder):
+    from cube_slam_wu_tpu_torch.utils import io as uio
+
+    paths = [str(folder / "raw_imgs" / f"{i:04d}_rgb_raw.jpg") for i in (0, 1)]
+    return paths, [torch.as_tensor(uio.load_image_gray(p), dtype=torch.float32) for p in paths]
+
+
+def line_command_argv(paths):
+    return (["detect-lines", "--image", paths[0], "--short-recovery"],
+            ["match-lines", "--image-a", paths[0], "--image-b", paths[1]])
+
+
+def line_cpu_side(folder, out_dir):
+    """The CPU side of the line layer (run in the child process): the two
+    commands, the detector variants, and the first frames of the fused step
+    with the recovery at 240x320 in float64."""
+    torch.set_num_threads(CPU_THREADS)
+    paths, grays = line_images(folder)
+    with contextlib.redirect_stdout(io.StringIO()):
+        cmds = [cli.main([*argv, "--out", str(out_dir / f"cpu_{argv[0]}"), "--device", "cpu"])
+                for argv in line_command_argv(paths)]
+    variants = {}
+    for name, run in line_variants(*grays).items():
+        lines, mask, _ = run()
+        variants[name] = lines[mask].numpy()
+    small = synth.make_sequence(n_frames=N_FRAMES, size=RECOVER_CMP["size"],
+                                n_objects=N_OBJECTS, seed=SEED)
+    drive = run_path(small, RECOVER_CMP["n_frames"], "cpu", dtype=torch.float64,
+                     detect_cfg=recover_cfg())
+    return cmds, variants, drive
+
+
+def set_agreement(a, b):
+    """(count difference as a fraction of a's count, the smaller matched
+    fraction of the two directions) of two valid segment sets."""
+    frac = min(segment_match_fraction(a, b), segment_match_fraction(b, a))
+    return abs(len(a) - len(b)) / max(len(a), 1), frac
+
+
+def sets_agree(a, b):
+    dn, frac = set_agreement(a, b)
+    return len(a) > 0 and dn <= SET_COUNT_TOL and frac >= SET_MATCH_MIN
+
+
+def pair_agreement(p, q, tol=0.5):
+    """Fraction of the matched line pairs of one match-lines run (p) that the
+    other run (q) also matched: both segments of the pair within `tol` px in
+    either endpoint order.  Pairs are compared by geometry, since each run
+    numbers the lines of its own detection."""
+    pa = [r["lines_a"][r["rows"][:, 0].astype(int)] for r in (p, q)]
+    pb = [r["lines_b"][r["rows"][:, 1].astype(int)] for r in (p, q)]
+    if len(pa[0]) == 0:
+        return 1.0
+    if len(pa[1]) == 0:
+        return 0.0
+    d = np.maximum(segment_distances(pa[0], pa[1]), segment_distances(pb[0], pb[1]))
+    return float((d.min(axis=1) < tol).mean())
+
+
+def phase_line_layer(folder, seq, out_dir, cpu_result, t_start):
+    """The line layer on the card: `cli detect-lines --short-recovery` and
+    `cli match-lines` on frames 0 and 1 of the folder, the detector variants
+    at full size (timed, host reads counted), then the fused step with the
+    two-pass detector over the main path's 30 frames with the launch counts
+    set to 0 just before and read just after; everything against the CPU
+    side; returns the launch counts of that run."""
+    paths, grays = line_images(folder)
+    cmd_card, cmd_seconds = [], []
+    for argv in line_command_argv(paths):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            cmd_card.append(cli.main([*argv, "--out", str(out_dir / f"card_{argv[0]}")]))
+        torch.cuda.synchronize()
+        cmd_seconds.append(time.perf_counter() - t0)
+
+    variants = line_variants(*(g.to(DEV) for g in grays))
+    timing = {}
+    for name, run in variants.items():
+        run()  # warm-up
+        torch.cuda.synchronize()
+        sync0 = hostsync.snapshot()
+        t0 = time.perf_counter()
+        for _ in range(LINE_TIMING_REPEATS):
+            lines, mask, extra = run()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / LINE_TIMING_REPEATS
+        reads = (hostsync.snapshot()["syncs"] - sync0["syncs"]) / LINE_TIMING_REPEATS
+        lines = lines[mask].cpu().numpy()
+        timing[name] = dict(ms=ms, host_reads=reads, n_lines=len(lines), lines=lines,
+                            **{k: int(v) for k, v in extra.items()})
+
+    # the fused step with the two-pass detector, as the main path
+    truth = seq.T_wc[:, :3, 3]
+    frames_with_det = sum(1 for d in seq.detections if len(d) > 0)
+    run_path(seq, 4, None, detect_cfg=recover_cfg())  # warm-up on the card
+    torch.cuda.synchronize()
+    clock = {}
+
+    def on_frame(i):
+        if i == 2:
+            torch.cuda.synchronize()
+            clock["t0"] = time.perf_counter()
+
+    cuda_kernels.reset_launch_counts()
+    res = run_path(seq, N_FRAMES, None, on_frame=on_frame, detect_cfg=recover_cfg())
+    torch.cuda.synchronize()
+    ms_per_frame = (time.perf_counter() - clock["t0"]) * 1e3 / (N_FRAMES - 3)
+    launches = dict(cuda_kernels.LAUNCHES)
+    traj = res.traj_Twc_xyzq[:N_FRAMES]
+    if not (np.isfinite(traj).all() and np.isfinite(res.cubes_minimal).all()):
+        raise RuntimeError("line_layer: trajectory or cuboids not finite")
+    if traj.shape != (N_FRAMES, 7) or not res.cube_valid.all():
+        raise RuntimeError(f"line_layer: unexpected shapes or slots {res.cube_valid}")
+    if launches["edt_row_min"] < frames_with_det:
+        raise RuntimeError(f"line_layer: edt_row_min launched {launches['edt_row_min']} times "
+                           f"for {frames_with_det} frames with detections")
+    ate = ate_rmse(traj[:, :3], truth)
+    ate_bound = 1.1 * ATE_RECOVER_JAX_M
+    if not ate < ate_bound:
+        raise RuntimeError(f"line_layer: ATE {ate} m above the bound {ate_bound} m")
+    k = RECOVER_RERUN_FRAMES
+    again = [run_path(seq, k, "cuda", detect_cfg=recover_cfg()) for _ in range(2)]
+    for what in ("traj_Twc_xyzq", "cubes_minimal", "cube_valid", "chi2"):
+        if not np.array_equal(getattr(again[0], what), getattr(again[1], what)):
+            raise RuntimeError(f"line_layer: two runs on the card differ in {what}")
+    if again[0].report != again[1].report or not np.array_equal(res.chi2[:k], again[0].chi2):
+        raise RuntimeError("line_layer: the reruns differ in their counters or from the measured run")
+    small = synth.make_sequence(n_frames=N_FRAMES, size=RECOVER_CMP["size"],
+                                n_objects=N_OBJECTS, seed=SEED)
+    card64 = run_path(small, RECOVER_CMP["n_frames"], "cuda", dtype=torch.float64,
+                      detect_cfg=recover_cfg())
+
+    # the card against the CPU (asked for by name: not a fallback)
+    cmd_cpu, variants_cpu, cpu64 = cpu_result()
+    failed, agree = [], {}
+    for name, t in timing.items():
+        dn, frac = set_agreement(t.pop("lines"), variants_cpu[name])
+        t.update(count_diff=dn, matched=frac)
+        if not (dn <= SET_COUNT_TOL and frac >= SET_MATCH_MIN):
+            failed.append(name)
+    n_lines = [len(cmd_card[0]), len(cmd_cpu[0])]
+    if not sets_agree(cmd_card[0], cmd_cpu[0]):
+        failed.append("detect-lines")
+    agree["match_pairs"] = min(pair_agreement(cmd_card[1], cmd_cpu[1]),
+                               pair_agreement(cmd_cpu[1], cmd_card[1]))
+    n_matches = [len(cmd_card[1]["rows"]), len(cmd_cpu[1]["rows"])]
+    if not (n_matches[0] > 0 and agree["match_pairs"] >= PAIR_MATCH_MIN):
+        failed.append("match-lines")
+    diff64 = float(np.abs(card64.traj_Twc_xyzq[:, :3] - cpu64.traj_Twc_xyzq[:, :3]).max())
+    if not (diff64 < RECOVER_CMP["limit_m"] and card64.report == cpu64.report):
+        failed.append("fused_step_float64")
+    if failed:
+        raise RuntimeError(f"line_layer: card and CPU differ in {failed}: {timing} {agree} "
+                           f"fused float64 {diff64} m")
+    emit({"phase": "line_layer", "size": list(SIZE),
+          "commands": {"detect_lines_short_recovery": {"seconds": cmd_seconds[0],
+                                                       "lines_card_cpu": n_lines},
+                       "match_lines": {"seconds": cmd_seconds[1], "matches_card_cpu": n_matches,
+                                       "pairs_agree": agree["match_pairs"]}},
+          "detector": timing,
+          "fused_short_recovery": {
+              "n_frames": N_FRAMES, "ms_per_frame": ms_per_frame,
+              "syncs_per_frame": res.syncs_per_frame, "ate_m": ate, "ate_bound_m": ate_bound,
+              "ate_jax_cpu_m": ATE_RECOVER_JAX_M, "report": res.report,
+              "rerun_frames": k, "rerun_bit_equal": True,
+              "cpu_vs_card_float64_240x320_m": diff64,
+              "cpu_vs_card_limit_m": RECOVER_CMP["limit_m"]},
+          "launches": launches, "frames_with_detections": frames_with_det,
+          "seconds_total": time.perf_counter() - t_start})
+    return launches
+
+
 def main() -> int:
     t_start = time.perf_counter()
     smi = nvidia_smi_line()
@@ -715,13 +958,16 @@ def main() -> int:
         root = pathlib.Path(tmp)
         folder, seq, small, detect_argv = write_tum_worlds(root)
         cpu_side = pool.submit(tum_cpu_drives, folder, small, detect_argv, root)
+        line_cpu = pool.submit(line_cpu_side, folder, root)  # after the TUM drives
         launches_tum = phase_tum_two_phase(folder, seq, small, cpu_side.result, t_start)
         launches_offline = phase_offline(folder, seq, cpu_side.result, t_start)
         launches_detect = phase_detect_cuboid(detect_argv, root, cpu_side.result, t_start)
+        launches_lines = phase_line_layer(folder, seq, root, line_cpu.result, t_start)
 
     by_path = {"main_path": launches_main, "windowed_path": launches_win,
                "kitti_path": launches_kitti, "tum_two_phase_path": launches_tum,
-               "offline_path": launches_offline, "detect_cuboid": launches_detect}
+               "offline_path": launches_offline, "detect_cuboid": launches_detect,
+               "line_layer": launches_lines}
     main_shape = per_shape[0]
     emit({"kernels": [{
         "name": "edt_row_min", "route": "cuda",

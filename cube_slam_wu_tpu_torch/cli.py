@@ -9,6 +9,9 @@ flags, with `--device` and `--float64` on each.
       [--sample-height] [--sample-roll-pitch] --out out/
   python -m cube_slam_wu_tpu_torch.cli kitti --seq <dir> --detections <dir> [--poses poses.txt]
       [--pose-feedback [--point-weight 0.3]] [--window 16] --out out/
+  python -m cube_slam_wu_tpu_torch.cli detect-lines --image img.jpg [--short-recovery] --out out/
+  python -m cube_slam_wu_tpu_torch.cli match-lines --image-a a.jpg --image-b b.jpg
+      [--max-dist 25] --out out/
 
 `offline` replays the saved cuboids of a TUM-layout folder
 (slam/pipeline.py::run_offline_slam).  `online` runs the two-phase driver
@@ -16,10 +19,12 @@ flags, with `--device` and `--float64` on each.
 BA), or with `--fused` the fused per-frame step (slam/online.py); `--window W`
 makes either a fixed-lag smoother over the trailing W frames.
 `detect-cuboid` is the single-image proposal demo.  `kitti` runs the KITTI
-driver over a KITTI-odometry-layout sequence.  Each writes the files the JAX
-package's command writes for the same command line (the TUM commands:
-output_cam_poses.txt, output_obj_poses.txt, trajectory_top_view.png and,
-with --save-cloud, map_cloud.ply).  Everything runs on the GPU unless
+driver over a KITTI-odometry-layout sequence.  `detect-lines` writes one
+image's segments (saved_edges.txt|jpg); `match-lines` detects and
+LBD-matches the segments of two images (line_matches.txt|jpg).  Each writes
+the files the JAX package's command writes for the same command line (the TUM
+commands: output_cam_poses.txt, output_obj_poses.txt, trajectory_top_view.png
+and, with --save-cloud, map_cloud.ply).  Everything runs on the GPU unless
 `--device cpu` is given, and fails when there is no GPU.
 """
 
@@ -194,6 +199,82 @@ def cmd_online(args):
     _write_outputs(args.out, result, truth[:n])
     if args.save_cloud:
         _write_point_cloud(args.out, args.base, result, args.save_cloud)
+
+
+def cmd_detect_lines(args):
+    """Line detection on one image: writes the valid segments to
+    saved_edges.txt and their overlay to saved_edges.jpg; returns the
+    segments as numpy."""
+    if not pathlib.Path(args.image).is_file():
+        raise SystemExit(f"error: --image {args.image!r} not found")
+    from PIL import Image
+
+    from cube_slam_wu_tpu_torch import resolve_device
+    from cube_slam_wu_tpu_torch.ops.detect import (
+        DetectConfig,
+        detect_line_segments,
+        detect_line_segments_recover,
+    )
+    from cube_slam_wu_tpu_torch.utils import hostsync
+    from cube_slam_wu_tpu_torch.utils import io as uio
+    from cube_slam_wu_tpu_torch.utils import viz
+
+    dev = resolve_device(args.device)
+    gray = hostsync.push(uio.load_image_gray(args.image), dev, _dtype(args))
+    if args.short_recovery:
+        lines, mask = detect_line_segments_recover(gray, DetectConfig(short_recovery=True))
+    else:
+        lines, mask = detect_line_segments(gray)
+    lines, mask = hostsync.pull((lines, mask))
+    lines = lines[mask]
+    out_dir = pathlib.Path(args.out)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    np.savetxt(out_dir / "saved_edges.txt", lines, fmt="%.3f")
+    rgb = uio.load_image_rgb(args.image)
+    Image.fromarray(viz.draw_lines_overlay(rgb, lines)).save(out_dir / "saved_edges.jpg")
+    print(f"{len(lines)} lines -> {out_dir}/saved_edges.txt|jpg")
+    return lines
+
+
+def cmd_match_lines(args):
+    """Two-image line matching demo (the reference's match_line_descrip
+    usage, line_lbd_allclass.cpp:352-369): detect + LBD descriptors on both
+    frames, Hamming-match the binarized codes with the mutual check, write a
+    drawLineMatches-style side-by-side picture and the (i, j, distance) rows
+    of the matches.  Returns the two line sets and the match rows as numpy."""
+    for path in (args.image_a, args.image_b):
+        if not pathlib.Path(path).is_file():
+            raise SystemExit(f"error: image {path!r} not found")
+    from PIL import Image
+
+    from cube_slam_wu_tpu_torch import resolve_device
+    from cube_slam_wu_tpu_torch.ops.detect import detect_line_segments
+    from cube_slam_wu_tpu_torch.ops.lbd import binarize_lbd, lbd_descriptors, match_lines_filtered
+    from cube_slam_wu_tpu_torch.utils import hostsync
+    from cube_slam_wu_tpu_torch.utils import io as uio
+    from cube_slam_wu_tpu_torch.utils import viz
+
+    dev = resolve_device(args.device)
+    ga = hostsync.push(uio.load_image_gray(args.image_a), dev, _dtype(args))
+    gb = hostsync.push(uio.load_image_gray(args.image_b), dev, _dtype(args))
+    la, ma = detect_line_segments(ga)
+    lb, mb = detect_line_segments(gb)
+    da, va = lbd_descriptors(ga, la, ma)
+    db, vb = lbd_descriptors(gb, lb, mb)
+    idx, dist, matched = match_lines_filtered(
+        binarize_lbd(da), binarize_lbd(db), va & ma, vb & mb, max_dist=args.max_dist
+    )
+    la, lb, idx, dist, matched = hostsync.pull((la, lb, idx, dist, matched))
+    out_dir = pathlib.Path(args.out)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    img = viz.draw_line_matches(
+        uio.load_image_rgb(args.image_a), la, uio.load_image_rgb(args.image_b), lb, idx, matched
+    )
+    Image.fromarray(img).save(out_dir / "line_matches.jpg")
+    rows = np.column_stack([np.nonzero(matched)[0], idx[matched], dist[matched]])
+    np.savetxt(out_dir / "line_matches.txt", rows, fmt="%d")
+    print(f"{int(matched.sum())} matches -> {out_dir}/line_matches.jpg|txt")
+    return dict(lines_a=la, lines_b=lb, rows=rows)
 
 
 def cmd_detect_cuboid(args):
@@ -462,6 +543,22 @@ def build_parser() -> argparse.ArgumentParser:
     _device_flags(pk)
     pk.set_defaults(fn=cmd_kitti)
 
+    pl = sub.add_parser("detect-lines", help="line detection on one image")
+    pl.add_argument("--image", required=True)
+    pl.add_argument("--out", default="out")
+    pl.add_argument("--short-recovery", action="store_true",
+                    help="additive short-segment recovery pass (~2x detector cost)")
+    _device_flags(pl)
+    pl.set_defaults(fn=cmd_detect_lines)
+
+    pm = sub.add_parser("match-lines", help="detect + LBD-match lines across two images")
+    pm.add_argument("--image-a", required=True)
+    pm.add_argument("--image-b", required=True)
+    pm.add_argument("--max-dist", type=int, default=25)
+    pm.add_argument("--out", default="out")
+    _device_flags(pm)
+    pm.set_defaults(fn=cmd_match_lines)
+
     pc = sub.add_parser("detect-cuboid", help="single-image cuboid proposal")
     pc.add_argument("--image", required=True)
     pc.add_argument("--bbox", required=True, help="x,y,w,h")
@@ -483,7 +580,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     """Run one command; returns what the command returns (detect-cuboid: its
-    proposals)."""
+    proposals; detect-lines and match-lines: their lines and matches)."""
     args = build_parser().parse_args(argv)
     return args.fn(args)
 

@@ -55,24 +55,22 @@ class DetectConfig:
     max_merge_iters: int = 400
     max_edge_pixels: int = 32768  # compaction cap for the Hough vote scatter
     max_output: int = 384  # final segment capacity (top-K by length)
-    # Helmholtz NFA validation: not ported yet (raises NotImplementedError).
+    # Helmholtz NFA validation (optional): keep a run only if its aligned
+    # support is statistically significant against the image's own occupancy
+    # rate — the a-contrario principle of LSD's rect NFA (lsd.cpp:873) and
+    # EDLine's LineValidation_ (binary_descriptor.cpp:2793-2875).
     nfa_validation: bool = False
-    nfa_log10_eps: float = 0.0
-    # Additive short-segment recovery: not ported yet (raises
-    # NotImplementedError).
+    nfa_log10_eps: float = 0.0  # keep if log10(NFA) < this (eps = 1)
+    # Additive short-segment recovery: after the main pass, zero the edge
+    # pixels its accepted segments claim and run a second extraction with a
+    # lower run gate on the residual (detect_line_segments_recover; the
+    # callers that honour the flag route to it).  ~2x detector cost.
     short_recovery: bool = False
-    short_min_inliers: float = 4.0
+    short_min_inliers: float = 4.0  # pass-2 run gate (~8 px)
     short_n_peaks: int = 512
-    short_extra_capacity: int = 384
-    claim_rho_px: float = 1.5
+    short_extra_capacity: int = 384  # extra output slots for recovered segs
+    claim_rho_px: float = 1.5  # pixel-to-segment claim distance
     claim_angle_deg: float = 8.0
-
-
-def _check_config(cfg: DetectConfig) -> None:
-    if cfg.nfa_validation:
-        raise NotImplementedError("DetectConfig.nfa_validation is not ported yet")
-    if cfg.short_recovery:
-        raise NotImplementedError("DetectConfig.short_recovery is not ported yet")
 
 
 def gaussian_blur5(gray: torch.Tensor, sigma: float = 1.0) -> torch.Tensor:
@@ -122,8 +120,9 @@ def hough_dims(H: int, W: int, cfg: DetectConfig):
     return cfg.n_theta, int(2 * diag / cfg.rho_bin) + 2, diag
 
 
-def edge_pixels(gray: torch.Tensor, cfg: DetectConfig):
-    """Stages 1-2 and the compaction to the strongest edge pixels.
+def edge_pixels(gray: torch.Tensor, cfg: DetectConfig, suppress: torch.Tensor | None = None):
+    """Stages 1-2 and the compaction to the strongest edge pixels; pixels of
+    the optional (H, W) bool `suppress` are no edge pixels.
 
     Returns (flat_w, flat_x, flat_y, flat_psi) of length NE and the dense
     (keep, mag, psi) fields the support raster reads."""
@@ -133,6 +132,8 @@ def edge_pixels(gray: torch.Tensor, cfg: DetectConfig):
     gx, gy = image_ops.sobel3(g)
     mag = torch.abs(gx) + torch.abs(gy)
     keep = image_ops._nms(mag, gx, gy) & (mag > cfg.grad_threshold)
+    if suppress is not None:
+        keep = keep & ~suppress
 
     # normal (gradient) angle folded to [0, pi)
     psi = torch.remainder(torch.atan2(gy, gx), math.pi)
@@ -202,6 +203,51 @@ def hough_peaks(acc: torch.Tensor, cfg: DetectConfig):
     return stable_top_k(peak_score.reshape(-1), cfg.n_peaks)
 
 
+def _near_collinear(ref, cand, perp_tol: float, ov_min: float, ang_tol_deg: float):
+    """(Lr, Lc) bool: candidate segment c lies along reference segment r
+    (both endpoints of c within `perp_tol` of r's line, c covering more than
+    `ov_min` of r's span, directions within `ang_tol_deg`)."""
+    d1 = ref[:, 2:4] - ref[:, 0:2]
+    len1 = torch.linalg.norm(d1, dim=-1) + 1e-9
+    u1 = d1 / len1[:, None]
+    n1 = torch.stack([-u1[:, 1], u1[:, 0]], dim=-1)
+    rel_a = cand[None, :, 0:2] - ref[:, None, 0:2]  # (Lr, Lc, 2)
+    rel_b = cand[None, :, 2:4] - ref[:, None, 0:2]
+    dot = lambda rel, u: rel[..., 0] * u[:, None, 0] + rel[..., 1] * u[:, None, 1]
+    perp = torch.maximum(torch.abs(dot(rel_a, n1)), torch.abs(dot(rel_b, n1)))
+    ta = dot(rel_a, u1) / len1[:, None]
+    tb = dot(rel_b, u1) / len1[:, None]
+    ov = torch.clamp(torch.maximum(ta, tb), max=1.0) - torch.clamp(torch.minimum(ta, tb), min=0.0)
+    a1 = torch.atan2(d1[:, 1], d1[:, 0])
+    a2 = torch.atan2(cand[:, 3] - cand[:, 1], cand[:, 2] - cand[:, 0])
+    d_ang = _angle_dist_pi(a1[:, None], a2[None, :])
+    return (perp < perp_tol) & (ov > ov_min) & (d_ang < math.radians(ang_tol_deg))
+
+
+def nfa_log10(counts, n_run, p0, n_peaks: int, NB: int):
+    """log10 of the number of false alarms of runs spanning `n_run` bins with
+    `counts` occupied, under occupancy rate `p0` (LSD lsd.cpp:873 / EDLine
+    LineValidation_ semantics, re-stated on the run raster):
+    NFA = N_tests * P[B(n, p0) >= k], N_tests = every (start, end) bin pair on
+    every peak line.  The binomial tail is an exact masked sum over the bin
+    axis, one lgamma batch, in p0's dtype."""
+    dtype = p0.dtype
+    k_run = torch.minimum(counts, n_run)
+    js = torch.arange(NB + 1, dtype=dtype, device=p0.device)  # term index
+    nf = n_run.to(dtype)[..., None]
+    kf = k_run.to(dtype)[..., None]
+    logterm = (
+        torch.lgamma(nf + 1.0)
+        - torch.lgamma(js + 1.0)
+        - torch.lgamma(nf - js + 1.0)
+        + js * torch.log(p0)
+        + (nf - js) * torch.log1p(-p0)
+    )
+    term_ok = (js >= kf) & (js <= nf)
+    tail = torch.sum(torch.where(term_ok, torch.exp(logterm), torch.zeros_like(logterm)), dim=-1)
+    return math.log10(n_peaks * NB * NB / 2.0) + torch.log10(torch.clamp(tail, min=1e-300))
+
+
 def detect_line_segments(
     gray: torch.Tensor,
     cfg: DetectConfig = DetectConfig(),
@@ -211,14 +257,16 @@ def detect_line_segments(
 
     Returns (lines (K, 4) [x1 y1 x2 y2] left-to-right, mask (K,)) with
     K = min(max_output, n_peaks * runs_per_peak) (top-K by length).
+
+    `suppress` (optional (H, W) bool) removes edge pixels from every stage
+    (votes AND support sampling) — the recovery pass's claimed-pixel mask.
+    `cfg.short_recovery` is not read here: `detect_line_segments_recover`
+    is the two-pass detector.
     """
-    _check_config(cfg)
-    if suppress is not None:
-        raise NotImplementedError("detect_line_segments(suppress=...) is not ported yet")
     dtype = gray.dtype
     dev = gray.device
     H, W = gray.shape
-    (flat_w, flat_x, flat_y, flat_psi), (keep, mag, psi) = edge_pixels(gray, cfg)
+    (flat_w, flat_x, flat_y, flat_psi), (keep, mag, psi) = edge_pixels(gray, cfg, suppress)
 
     # ---- Hough accumulation + peak extraction ------------------------------
     NT, NR, diag = hough_dims(H, W, cfg)
@@ -341,6 +389,18 @@ def detect_line_segments(
         & torch.isfinite(tmax)
     )
 
+    if cfg.nfa_validation:
+        # a-contrario gate on the run raster: every bin is occupied
+        # independently with the image's own global occupancy rate p0
+        inb_bin = torch.any(inb, dim=-1)  # (P, NB) bins with any valid sample
+        n_occ = torch.sum(inb_bin & occb).to(torch.float64)
+        p0 = n_occ / torch.clamp(torch.sum(inb_bin), min=1).to(torch.float64)
+        p0 = torch.clamp(p0.to(dtype), 1e-6, 1.0 - 1e-6)
+        n_run = torch.clamp(
+            torch.round((tmax - tmin) / cfg.t_bin).to(torch.int32) + 1, 1, NB
+        )  # (P, S) span in bins
+        ok = ok & (nfa_log10(counts, n_run, p0, P, NB) < cfg.nfa_log10_eps)
+
     # endpoints: p = anchor + t*(-sin,cos); extend to bin edges
     ex = ex_p[:, None]
     ey = ey_p[:, None]
@@ -370,29 +430,9 @@ def detect_line_segments(
 
     # one-shot dedupe: drop a segment if a strictly stronger, nearly-parallel
     # segment overlaps it (adjacent Hough peaks produce near-duplicates)
-    ang = torch.atan2(segs[:, 3] - segs[:, 1], segs[:, 2] - segs[:, 0])
-    dvec = segs[:, 2:4] - segs[:, 0:2]
-    dlen = torch.linalg.norm(dvec, dim=-1) + 1e-9
-    dunit = dvec / dlen[:, None]
-    nunit = torch.stack([-dunit[:, 1], dunit[:, 0]], dim=-1)
-
-    rel_a = segs[None, :, 0:2] - segs[:, None, 0:2]  # head_j - head_i
-    rel_b = segs[None, :, 2:4] - segs[:, None, 0:2]
-    dot = lambda rel, u: rel[..., 0] * u[:, None, 0] + rel[..., 1] * u[:, None, 1]
-    perp = torch.maximum(torch.abs(dot(rel_a, nunit)), torch.abs(dot(rel_b, nunit)))
-    ta = dot(rel_a, dunit) / dlen[:, None]
-    tb = dot(rel_b, dunit) / dlen[:, None]
-    ov = torch.clamp(torch.maximum(ta, tb), max=1.0) - torch.clamp(
-        torch.minimum(ta, tb), min=0.0
-    )
-    d_ang = torch.abs(ang[:, None] - ang[None, :])
-    d_mod = torch.remainder(d_ang, math.pi)
-    d_ang = torch.minimum(d_mod, math.pi - d_mod)
     order = torch.arange(segs.shape[0], device=dev)
     dominated_by = (
-        (perp < 2.0)
-        & (ov > 0.6)
-        & (d_ang < math.radians(3.0))
+        _near_collinear(segs, segs, 2.0, 0.6, 3.0)
         & (
             (seg_weight[None, :] > seg_weight[:, None])
             | (
@@ -434,3 +474,183 @@ def detect_line_segments(
     lens = torch.where(merged_mask, line_ops.line_lengths(merged), zero)
     _, out_idx = stable_top_k(lens, K)
     return merged[out_idx], merged_mask[out_idx] & (lens[out_idx] > 0)
+
+
+def _claimed_mask(shape, psi, lines, mask, rho_tol: float, ang_tol_deg: float):
+    """(H, W) bool: pixels geometrically claimed by the accepted segments
+    (within `rho_tol` of the segment, inside its span +-2 px, gradient normal
+    within `ang_tol_deg` of the segment normal), in the lines' dtype.
+
+    The segments go through in chunks broadcast over (H, W) and OR-reduced:
+    one launch per elementwise op per chunk instead of one per segment.  A
+    chunk's (chunk, H, W) float64 temporaries stay near 128 MB each."""
+    H, W = shape
+    dtype = lines.dtype
+    dev = lines.device
+    ys = torch.arange(H, dtype=dtype, device=dev)[:, None]
+    xs = torch.arange(W, dtype=dtype, device=dev)[None, :]
+    ang_tol = math.radians(ang_tol_deg)
+    chunk = max(1, (1 << 27) // (H * W * 8))
+    claimed = torch.zeros((H, W), dtype=torch.bool, device=dev)
+    for c0 in range(0, lines.shape[0], chunk):
+        seg = lines[c0 : c0 + chunk]
+        x1, y1, x2, y2 = (seg[:, k, None, None] for k in range(4))
+        dx, dy = x2 - x1, y2 - y1
+        L = torch.sqrt(dx * dx + dy * dy) + 1e-9
+        ux, uy = dx / L, dy / L
+        rx = xs - x1
+        ry = ys - y1
+        perp = torch.abs(rx * (-uy) + ry * ux)
+        t = rx * ux + ry * uy
+        normal_ang = torch.remainder(torch.atan2(dy, dx) + math.pi / 2, math.pi)
+        ang_ok = _angle_dist_pi(psi, normal_ang) < ang_tol
+        hit = (
+            mask[c0 : c0 + chunk, None, None]
+            & (perp <= rho_tol)
+            & (t >= -2.0)
+            & (t <= L + 2.0)
+            & ang_ok
+        )
+        claimed = claimed | torch.any(hit, dim=0)
+    return claimed
+
+
+def detect_line_segments_recover(gray: torch.Tensor, cfg: DetectConfig = DetectConfig()):
+    """Two-pass detection with ADDITIVE short-segment recovery.
+
+    Pass 1 is exactly `detect_line_segments(gray, cfg)` — its output slots
+    are preserved verbatim (same segments, same length-descending order).
+    Pass 2 reruns the extraction on the residual edge field (pass-1 claimed
+    pixels suppressed) with a lower run gate (`short_min_inliers`) and its
+    own peak budget, recovering short structures whose Hough evidence lost to
+    long segments (the reference's region growers find these locally,
+    lsd.cpp:637).  Pass-2 segments dominated by a pass-1 segment are dropped;
+    survivors fill the extra `short_extra_capacity` output slots by length.
+
+    Returns (lines (K + short_extra_capacity, 4), mask) like
+    detect_line_segments."""
+    l1, m1 = detect_line_segments(gray, cfg)
+    H, W = gray.shape
+    g = gaussian_blur5(gray)
+    gx, gy = image_ops.sobel3(g)
+    psi = torch.remainder(torch.atan2(gy, gx), math.pi)
+    claimed = _claimed_mask((H, W), psi, l1, m1, cfg.claim_rho_px, cfg.claim_angle_deg)
+    cfg2 = dataclasses.replace(cfg, min_inliers=cfg.short_min_inliers, n_peaks=cfg.short_n_peaks)
+    l2, m2 = detect_line_segments(gray, cfg2, suppress=claimed)
+
+    # dominance dedupe: drop pass-2 segments a pass-1 segment already covers
+    m2 = m2 & ~torch.any(m1[:, None] & _near_collinear(l1, l2, 3.0, 0.5, 5.0), dim=0)
+
+    # pass-1 keeps its slots verbatim (priority offset); pass-2 survivors
+    # follow by length, so consumers of the plain detector see an unchanged
+    # prefix
+    K = l1.shape[0]
+    K_out = K + cfg.short_extra_capacity
+    all_lines = torch.cat([l1, l2], dim=0)
+    all_mask = torch.cat([m1, m2], dim=0)
+    zero = torch.zeros((), dtype=all_lines.dtype, device=all_lines.device)
+    lens = torch.where(
+        all_mask, torch.linalg.norm(all_lines[:, 2:4] - all_lines[:, 0:2], dim=-1), zero
+    )
+    first = torch.arange(all_lines.shape[0], device=all_lines.device) < K
+    prio = lens + torch.where(first, torch.full_like(lens, 1e6), zero)
+    prio = torch.where(all_mask, prio, zero)
+    _, sel = stable_top_k(prio, min(K_out, all_lines.shape[0]))
+    return all_lines[sel], all_mask[sel] & (prio[sel] > 0)
+
+
+def detector_for(cfg: DetectConfig):
+    """The detector the SLAM front ends run for `cfg`: the two-pass
+    `detect_line_segments_recover` with `short_recovery`, else the plain
+    `detect_line_segments` (JAX slam/online.py:216-225, pipeline.py:426-428)."""
+    return detect_line_segments_recover if cfg.short_recovery else detect_line_segments
+
+
+def downsample2(gray: torch.Tensor) -> torch.Tensor:
+    """One pyramid level: Gaussian blur then 2x decimation (the reference's
+    per-octave pyramid step, binary_descriptor.cpp:352-372 /
+    LSDDetector.cpp:55-102 with reductionRatio = 2)."""
+    return gaussian_blur5(gray)[::2, ::2]
+
+
+def _clip_segments_to_image(lines: torch.Tensor, W: int, H: int):
+    """Clip segments to the image rectangle along their own direction (slab
+    intersection); returns (clipped lines, still-nonempty mask)."""
+    a = lines[:, 0:2]
+    d = lines[:, 2:4] - a
+    lo = torch.tensor([0.0, 0.0], dtype=lines.dtype, device=lines.device)
+    hi = torch.tensor([W - 1.0, H - 1.0], dtype=lines.dtype, device=lines.device)
+    safe_d = torch.where(torch.abs(d) < 1e-9, torch.full_like(d, 1e-9), d)
+    t0 = (lo - a) / safe_d
+    t1 = (hi - a) / safe_d
+    tmin = torch.amax(torch.minimum(t0, t1), dim=1)
+    tmax = torch.amin(torch.maximum(t0, t1), dim=1)
+    tmin_c = torch.clamp(tmin, 0.0, 1.0)
+    tmax_c = torch.clamp(tmax, 0.0, 1.0)
+    p1 = a + tmin_c[:, None] * d
+    p2 = a + tmax_c[:, None] * d
+    return torch.cat([p1, p2], dim=1), tmax_c > tmin_c
+
+
+def detect_line_segments_octaves(
+    gray: torch.Tensor,
+    cfg: DetectConfig = DetectConfig(),
+    n_octaves: int = 1,
+    return_octaves: bool = False,
+):
+    """Multi-octave detection (numOfOctave_ / Octave_ratio = 2 semantics of
+    the reference wrapper, line_lbd_allclass.cpp:114-127): detect on each
+    pyramid level, scale endpoints back to octave-0 pixels, then a
+    cross-octave dedupe with FINE priority (OctaveKeyLines keeps the
+    higher-resolution observation of a structure, binary_descriptor.cpp:
+    796-1150): a coarser line survives only if no finer, near-collinear line
+    covers most of its extent.
+
+    Returns (lines (K, 4), mask) in octave-0 coordinates, K =
+    min(max_output, n_octaves * per-octave K); with `return_octaves`, also the
+    (K,) int32 octave each segment was detected in (the provenance
+    `lbd_descriptors_octaves` takes)."""
+    per_octave = []
+    img = gray
+    for o in range(n_octaves):
+        lines_o, mask_o = detect_line_segments(img, cfg)
+        scale = float(2**o)
+        # pixel-centre mapping: x_full = scale * x + (scale - 1) / 2
+        lines_o = lines_o * scale + (scale - 1.0) / 2.0
+        if o > 0:
+            # coarse-octave bin-edge extension overshoots by up to
+            # 2^o * t_bin px once scaled back: clip to the image rectangle
+            lines_o, in_img = _clip_segments_to_image(lines_o, gray.shape[1], gray.shape[0])
+            mask_o = mask_o & in_img
+        per_octave.append((lines_o, mask_o))
+        if o + 1 < n_octaves:
+            img = downsample2(img)
+    if n_octaves == 1:
+        lines0, mask0 = per_octave[0]
+        if return_octaves:
+            octs = torch.zeros((lines0.shape[0],), dtype=torch.int32, device=gray.device)
+            return lines0, mask0, octs
+        return lines0, mask0
+    lines = torch.cat([l for l, _ in per_octave], dim=0)
+    mask = torch.cat([m for _, m in per_octave], dim=0)
+    oct_id = torch.cat(
+        [torch.full((l.shape[0],), o, device=gray.device) for o, (l, _) in enumerate(per_octave)]
+    )
+    covered_by_finer = (
+        _near_collinear(lines, lines, cfg.merge_dist, 0.5, cfg.merge_angle_deg)
+        & (oct_id[None, :] < oct_id[:, None])
+        & mask[None, :]
+    )
+    mask = mask & ~torch.any(covered_by_finer, dim=1)
+    K = min(cfg.max_output, lines.shape[0])
+    zero = torch.zeros((), dtype=lines.dtype, device=lines.device)
+    lens = torch.where(mask, line_ops.line_lengths(lines), zero)
+    # octave-0 lines always make the cut (a coarse addition never displaces
+    # one); coarser octaves fill the remaining slots by length
+    BIG = 4.0 * math.hypot(*gray.shape)
+    prio = torch.where(lens > 0, lens + BIG * (oct_id == 0).to(lens.dtype), zero)
+    _, out_idx = stable_top_k(prio, K)
+    out_mask = mask[out_idx] & (lens[out_idx] > 0)
+    if return_octaves:
+        return lines[out_idx], out_mask, oct_id[out_idx].to(torch.int32)
+    return lines[out_idx], out_mask

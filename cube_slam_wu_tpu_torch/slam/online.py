@@ -223,17 +223,13 @@ def make_online_step(
     Frame 0 needs its own instance (sample_cam_roll_pitch=False, the
     reference samples roll/pitch only after the first frame)."""
     from cube_slam_wu_tpu_torch.ops.association import associate_detections
-    from cube_slam_wu_tpu_torch.ops.detect import (
-        DetectConfig,
-        _check_config,
-        detect_line_segments,
-    )
+    from cube_slam_wu_tpu_torch.ops.detect import DetectConfig, detector_for
     from cube_slam_wu_tpu_torch.ops.proposal import ProposalConfig, detect_cuboids
     from cube_slam_wu_tpu_torch.ops.proposal import _check_config as _check_proposal
 
     dev = resolve_device(device)
     detect_cfg = detect_cfg or DetectConfig()
-    _check_config(detect_cfg)
+    detect_line_segments = detector_for(detect_cfg)
     over = dict(proposal_overrides or {})
     over.setdefault("nominal_skew_ratio", 2.0)  # main_obj.cpp:499
     over.setdefault("rank_margin", 2e-3)

@@ -440,11 +440,11 @@ def _frontend_frames(
 ):
     """The two-phase front-end over a frame sequence (see
     `run_online_frontend`).  `T0` is the fixed camera-to-world pose (4x4)."""
-    from cube_slam_wu_tpu_torch.ops.detect import DetectConfig, _check_config, detect_line_segments
+    from cube_slam_wu_tpu_torch.ops.detect import DetectConfig, detector_for
     from cube_slam_wu_tpu_torch.ops.proposal import ProposalConfig, detect_cuboids
 
     detect_cfg = detect_cfg or DetectConfig()
-    _check_config(detect_cfg)
+    detect_line_segments = detector_for(detect_cfg)
     over = _proposal_overrides(proposal_overrides)
     O = max_objects
     D = max_detections or max(1, max_objects)
@@ -1130,13 +1130,15 @@ def _run_kitti_tracked(
     triangulated/ground-bootstrapped and optimised inside each window
     (tracker.make_windowed_point_step).  Ground hints come from corners below
     the principal row and outside every detection box."""
-    from cube_slam_wu_tpu_torch.ops.detect import DetectConfig, _check_config, detect_line_segments
+    from cube_slam_wu_tpu_torch.ops.detect import DetectConfig, detect_line_segments
     from cube_slam_wu_tpu_torch.ops.proposal import ProposalConfig, detect_cuboids
     from cube_slam_wu_tpu_torch.slam.graph import CameraObjectGraph
     from cube_slam_wu_tpu_torch.slam.window import CubePrior
 
+    # this interleaved loop runs the plain detector whatever `short_recovery`
+    # says, as the JAX package's does (the two-phase schedule's front end
+    # takes the recovery route); `nfa_validation` is honoured
     detect_cfg = detect_cfg or DetectConfig()
-    _check_config(detect_cfg)
     over = _proposal_overrides(proposal_overrides)
     O, D = max_objects, max_detections
     K_t = torch.as_tensor(K_np).to(device=dev, dtype=dtype)

@@ -69,6 +69,14 @@ def draw_cuboid(
     return out
 
 
+def draw_lines_overlay(img: np.ndarray, lines: np.ndarray, color=(255, 0, 0)) -> np.ndarray:
+    """Overlay detected segments (plot_image_with_edges analogue)."""
+    out = img.copy()
+    for l in np.asarray(lines):
+        draw_line(out, l[:2], l[2:4], color, 2)
+    return out
+
+
 def trajectory_top_view(
     est_xyz: np.ndarray,
     truth_xyz: np.ndarray | None = None,
@@ -151,3 +159,48 @@ def write_ply(path, xyz: np.ndarray, rgb: np.ndarray) -> None:
         )
         for p, c in zip(xyz, rgb):
             f.write(f"{p[0]:.4f} {p[1]:.4f} {p[2]:.4f} {c[0]} {c[1]} {c[2]}\n")
+
+
+def draw_line_matches(
+    img_a: np.ndarray,
+    lines_a: np.ndarray,
+    img_b: np.ndarray,
+    lines_b: np.ndarray,
+    match_idx: np.ndarray,
+    matched: np.ndarray,
+    max_draw: int = 64,
+) -> np.ndarray:
+    """Side-by-side match visualization (drawLineMatches, line_lbd/libs/
+    draw.cpp): both images stacked horizontally, matched segments drawn in
+    a shared per-match colour with a connector between midpoints.
+
+    lines_a/lines_b: (L, 4) [x1 y1 x2 y2]; match_idx: (La,) index into
+    lines_b; matched: (La,) bool.  Returns an (H, Wa+Wb, 3) uint8 image.
+    """
+    a = np.asarray(img_a)
+    b = np.asarray(img_b)
+    if a.ndim == 2:
+        a = np.stack([a] * 3, axis=-1)
+    if b.ndim == 2:
+        b = np.stack([b] * 3, axis=-1)
+    H = max(a.shape[0], b.shape[0])
+    out = np.zeros((H, a.shape[1] + b.shape[1], 3), np.uint8)
+    out[: a.shape[0], : a.shape[1]] = a.astype(np.uint8)
+    out[: b.shape[0], a.shape[1] :] = b.astype(np.uint8)
+    off = a.shape[1]
+    rng = np.random.default_rng(0)
+    drawn = 0
+    for i in np.nonzero(np.asarray(matched))[0]:
+        if drawn >= max_draw:
+            break
+        j = int(np.asarray(match_idx)[i])
+        color = tuple(int(c) for c in rng.integers(64, 255, size=3))
+        la = np.asarray(lines_a)[i]
+        lb = np.asarray(lines_b)[j]
+        draw_line(out, la[0:2], la[2:4], color)
+        draw_line(out, (lb[0] + off, lb[1]), (lb[2] + off, lb[3]), color)
+        ma = (la[0:2] + la[2:4]) / 2
+        mb = ((lb[0] + lb[2]) / 2 + off, (lb[1] + lb[3]) / 2)
+        draw_line(out, ma, mb, color, thickness=1)
+        drawn += 1
+    return out

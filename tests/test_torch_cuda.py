@@ -43,3 +43,57 @@ def test_edt_kernel_matches_plain_on_card():
         cuda_kernels.edt_row_min(torch.zeros((1, 3000, cuda_kernels.MAX_WIDTH), device=dev))
     with pytest.raises(ValueError, match="width"):
         cuda_kernels.edt_row_min(torch.zeros((1, 2, cuda_kernels.MAX_WIDTH + 1), device=dev))
+
+
+@pytest.mark.cuda
+def test_line_layer_on_card_matches_cpu():
+    """The line layer on the card against the CPU: the codes and the four
+    matchers bit-equal (integer arithmetic), the claim mask bit-equal in
+    float64 on the same inputs, and each detector variant (plain, NFA, the
+    two-pass recovery, two octaves) the same set of segments (counts within
+    5 %, >= 95 % matched within 0.5 px: atan2 and the float32 sums may differ
+    by an ulp between the devices)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the card's side of the comparison)")
+    from tum_parity import segment_match_fraction
+
+    from cube_slam_wu_tpu_torch.ops import detect as tdet
+    from cube_slam_wu_tpu_torch.ops import lbd as tlbd
+    from cube_slam_wu_tpu_torch.utils import synth
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(1)
+    words = torch.from_numpy(rng.integers(0, 2**32, size=(40, 8), dtype=np.int64))
+    masks = torch.from_numpy(rng.random(40) < 0.8)
+    desc = torch.from_numpy(rng.normal(size=(40, 72)).astype(np.float32))
+    assert torch.equal(tlbd.binarize_lbd(desc.to(dev)).cpu(), tlbd.binarize_lbd(desc))
+    for name, kw in (("hamming_match", {}), ("match_lines_filtered", {}), ("radius_match", {}),
+                     ("knn_match", dict(k=2))):
+        f = getattr(tlbd, name)
+        cpu = f(words[:25], words[10:], masks[:25], masks[10:], **kw)
+        card = f(*(a.to(dev) for a in (words[:25], words[10:], masks[:25], masks[10:])), **kw)
+        for a, b in zip(cpu, card):
+            assert torch.equal(a, b.cpu()), name
+
+    img = torch.from_numpy(
+        synth.make_sequence(n_frames=1, n_objects=3, size=(480, 640), seed=0).images[0]
+    ).to(torch.float32)
+    lines, mask = tdet.detect_line_segments(img)
+    psi = torch.rand(img.shape, dtype=torch.float64) * np.pi
+    args = (img.shape, psi, lines.double(), mask, 1.5, 8.0)
+    assert torch.equal(
+        tdet._claimed_mask(*args).cpu(),
+        tdet._claimed_mask(*(a.to(dev) if torch.is_tensor(a) else a for a in args)).cpu(),
+    )
+    variants = {
+        "plain": lambda g: tdet.detect_line_segments(g),
+        "nfa": lambda g: tdet.detect_line_segments(g, tdet.DetectConfig(nfa_validation=True)),
+        "recover": lambda g: tdet.detect_line_segments_recover(
+            g, tdet.DetectConfig(short_recovery=True)),
+        "octaves": lambda g: tdet.detect_line_segments_octaves(g, n_octaves=2),
+    }
+    for name, run in variants.items():
+        (la, ma), (lb, mb) = run(img), run(img.to(dev))
+        a, b = la[ma].numpy(), lb[mb].cpu().numpy()
+        assert len(a) >= 8 and abs(len(a) - len(b)) <= 0.05 * len(a), name
+        assert min(segment_match_fraction(a, b), segment_match_fraction(b, a)) >= 0.95, name

@@ -225,9 +225,19 @@ def test_detect_line_segments_as_sets(k):
 
 
 def test_unported_detector_options_raise():
+    """The options refused before they were ported now run (their parity:
+    tests/test_torch_detect_options.py).  As in the JAX package,
+    `detect_line_segments` does not read `short_recovery` (the two-pass
+    detector is `detect_line_segments_recover`); an empty `suppress` mask
+    changes nothing and a full one leaves no edge pixel; the NFA gate keeps a
+    subset of the candidate runs."""
     img = to_t(FRAMES[0])
-    for kw in (dict(short_recovery=True), dict(nfa_validation=True)):
-        with pytest.raises(NotImplementedError):
-            tdet.detect_line_segments(img, tdet.DetectConfig(**kw))
-    with pytest.raises(NotImplementedError):
-        tdet.detect_line_segments(img, suppress=torch.zeros_like(img, dtype=torch.bool))
+    plain = tdet.detect_line_segments(img)
+    flag = tdet.detect_line_segments(img, tdet.DetectConfig(short_recovery=True))
+    assert torch.equal(plain[0], flag[0]) and torch.equal(plain[1], flag[1])
+    none = tdet.detect_line_segments(img, suppress=torch.zeros_like(img, dtype=torch.bool))
+    assert torch.equal(plain[0], none[0]) and torch.equal(plain[1], none[1])
+    full = tdet.detect_line_segments(img, suppress=torch.ones_like(img, dtype=torch.bool))
+    assert not full[1].any()
+    nfa_l, nfa_m = tdet.detect_line_segments(img, tdet.DetectConfig(nfa_validation=True))
+    assert 0 < int(nfa_m.sum()) <= int(plain[1].sum()) + 2

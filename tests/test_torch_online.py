@@ -267,13 +267,37 @@ def test_device_none_without_gpu_raises(seq):
     ],
     ids=lambda kw: "-".join(f"{k}" for k in kw) + "-" + str(list(kw.values())[0])[:28],
 )
-def test_unported_online_options_raise(seq, kw):
-    """The detector options are not ported yet; a ranked ObjectSet
-    (max_cuboid_num > 1) is refused by the step, which takes one proposal
-    per box (in the JAX package it fails on the shapes)."""
-    exc = ValueError if "proposal_overrides" in kw else NotImplementedError
-    with pytest.raises(exc):
-        tonline.make_online_step(seq.K, seq.T_wc[0], N, device="cpu", **kw)
+def test_unported_online_options_raise(seq, kw, monkeypatch):
+    """The detector options, refused before they were ported, now run in the
+    step: its line set on frame 0 is what the option's detector gives on
+    that frame (the two-pass `detect_line_segments_recover` for
+    short_recovery, as JAX online.py:216-225; the NFA-gated
+    `detect_line_segments` for nfa_validation), and the frame's proposals
+    spawn every landmark.  A ranked ObjectSet (max_cuboid_num > 1) is still
+    refused by the step, which takes one proposal per box (in the JAX
+    package it fails on the shapes)."""
+    if "proposal_overrides" in kw:
+        with pytest.raises(ValueError):
+            tonline.make_online_step(seq.K, seq.T_wc[0], N, device="cpu", **kw)
+        return
+    from cube_slam_wu_tpu_torch.ops import detect as tdet
+
+    cfg = kw["detect_cfg"]
+    name = "detect_line_segments_recover" if cfg.short_recovery else "detect_line_segments"
+    real, seen = getattr(tdet, name), []
+
+    def spy(gray, c, *a, **k):
+        out = real(gray, c, *a, **k)
+        seen.append((c, out))
+        return out
+
+    monkeypatch.setattr(tdet, name, spy)
+    res = _port_mem(seq, n=1, **kw)
+    assert len(seen) == 1 and seen[0][0] == cfg
+    lines, mask = real(torch.as_tensor(seq.images[0]).to(torch.float32), cfg)
+    assert torch.equal(seen[0][1][0], lines) and torch.equal(seen[0][1][1], mask)
+    assert lines.shape[0] == (768 if cfg.short_recovery else 384)
+    assert res.cube_valid.all() and np.isfinite(res.traj_Twc_xyzq).all()
 
 
 @pytest.mark.parametrize("over", [dict(sample_bbox_height=True), dict(average_top_k=3)],

@@ -1,7 +1,7 @@
 """Port parity: the KITTI driver (`run_kitti_slam`) interleaved with point
 landmarks (the production mode) against the JAX package's, both reading the
 same KITTI-layout files of a short synthetic drive (tests/kitti_parity.py);
-the entry points' device rule and the options not ported yet (the yaw prior
+the entry points' device rule and the detector options (the yaw prior
 of the single-track front end is held against JAX in
 tests/test_torch_pipeline_tum.py).
 
@@ -42,11 +42,24 @@ def test_entry_points_need_the_card_unless_told():
         tpipe.run_kitti_slam("/nonexistent", "/nonexistent")
 
 
-def test_unported_options_raise():
+def test_unported_options_raise(drive):
+    """`short_recovery`, refused before it was ported, is ignored by the
+    interleaved KITTI loop as by the JAX package's (its plain
+    `detect_line_segments`, JAX pipeline.py:1302): the outputs equal those
+    with it off.  Point landmarks without the interleaved mode are refused."""
     from cube_slam_wu_tpu_torch.ops.detect import DetectConfig
+    from kitti_parity import COMMON
 
-    with pytest.raises(NotImplementedError, match="short_recovery"):
-        tpipe.run_kitti_frames([(None, None)], np.eye(3), np.eye(4), device="cpu",
-                               detect_cfg=DetectConfig(short_recovery=True), pose_feedback=True)
+    seq = drive[3]
+    frames = [(seq.images[i], seq.detections[i]) for i in range(2)]
+    runs = [
+        tpipe.run_kitti_frames(frames, seq.K, seq.T_wc[0], device="cpu", pose_feedback=True,
+                               detect_cfg=DetectConfig(short_recovery=flag), **COMMON)
+        for flag in (True, False)
+    ]
+    for what in ("traj_Twc_xyzq", "cubes_minimal", "cube_valid", "chi2"):
+        np.testing.assert_array_equal(getattr(runs[0], what), getattr(runs[1], what))
+    assert runs[0].frontend_report == runs[1].frontend_report
+    assert np.isfinite(runs[0].traj_Twc_xyzq).all()
     with pytest.raises(ValueError, match="interleaved"):
         tpipe.run_kitti_frames([(None, None)], np.eye(3), np.eye(4), device="cpu", point_weight=0.3)

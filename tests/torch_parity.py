@@ -232,3 +232,15 @@ def assert_same_files(a, b, names):
 
 # the TUM commands' files (output_cam_poses.txt ... trajectory_top_view.png)
 TUM_FILES = ("output_cam_poses.txt", "output_obj_poses.txt", "trajectory_top_view.png")
+
+
+def assert_same_segment_sets(a, b, min_count=1):
+    """The detector's parity contract between the packages (an atan2 ulp
+    moves a pixel's bin, so the detector is a set function): counts within
+    5 %, and >= 95 % of either side's segments matched within 0.5 px."""
+    from tum_parity import segment_match_fraction
+
+    assert len(a) >= min_count, len(a)
+    assert abs(len(a) - len(b)) <= 0.05 * len(a), (len(a), len(b))
+    assert segment_match_fraction(a, b) >= 0.95, segment_match_fraction(a, b)
+    assert segment_match_fraction(b, a) >= 0.95, segment_match_fraction(b, a)

@@ -1,7 +1,8 @@
 """Helpers of the port's parity tests for the TUM dataset commands.  Numpy
-and the port only: chip_smoke.py imports `tilt`, `write_world` and
-`write_offline_files` from here, so this module imports nothing of JAX or of
-the JAX package (tests/test_torch_pipeline_tum_offline.py holds it to that).
+and the port only: chip_smoke.py imports `tilt`, `write_world`,
+`write_offline_files` and the segment-set helpers from here, so this module
+imports nothing of JAX or of the JAX package
+(tests/test_torch_pipeline_tum_offline.py holds it to that).
 
 `write_world` writes a synthetic world in the reference's object_slam/data
 layout: the images, the YOLO-style detections and the truth poses that
@@ -72,3 +73,27 @@ def write_world(folder, world=WORLD, tilt_deg=TILT_DEG, offline_seed=1):
     write_offline_files(seq, folder, offline_seed)
     return folder, seq
 
+
+def segment_distances(a, b):
+    """(Na, Nb): for segments a (Na, 4) and b (Nb, 4), the larger of the two
+    endpoint distances, in the closer of the two endpoint orders."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    d_same = np.maximum(
+        np.linalg.norm(a[:, None, 0:2] - b[None, :, 0:2], axis=-1),
+        np.linalg.norm(a[:, None, 2:4] - b[None, :, 2:4], axis=-1),
+    )
+    d_swap = np.maximum(
+        np.linalg.norm(a[:, None, 0:2] - b[None, :, 2:4], axis=-1),
+        np.linalg.norm(a[:, None, 2:4] - b[None, :, 0:2], axis=-1),
+    )
+    return np.minimum(d_same, d_swap)
+
+
+def segment_match_fraction(a, b, tol=0.5):
+    """Fraction of segments of `a` (N, 4) with a segment of `b` whose both
+    endpoints lie within `tol` px (either endpoint order)."""
+    if len(a) == 0:
+        return 1.0
+    if len(b) == 0:
+        return 0.0
+    return float((segment_distances(a, b).min(axis=1) < tol).mean())
