@@ -20,8 +20,13 @@ layer on that folder (`line_layer`: `cli detect-lines --short-recovery` and
 `cli match-lines` on frames 0 and 1, the detector variants at full size —
 plain, short-segment recovery, NFA gate, two octaves with their LBD codes
 matched k=2 — and the fused step with `DetectConfig(short_recovery=True)`
-over the main path's 30 frames); checks the results against the CPU and the
-JAX package's ATE, and prints one JSON object per phase.  The last line is
+over the main path's 30 frames), then the Sim(3) loop closure
+(`pose_graph`: `correct_scale_drift` on a 256-keyframe loop whose odometry
+drifts in scale, float32 and float64) and the runtime tools (`runtime`: the
+native library built and held against the Python readers, both profilers,
+the two-phase driver's host reads split by stage); checks the results
+against the CPU and the JAX package's figures, and prints one JSON object
+per phase.  The last line is
 `{"ok": true, "device": {...}}`.  Any failing phase ends the script with a
 non-zero exit code; without a CUDA device it exits 1 and prints no result.
 Imports nothing of JAX.
@@ -61,8 +66,11 @@ from cube_slam_wu_tpu_torch.tools.cardtime import (  # noqa: E402
 )
 from cube_slam_wu_tpu_torch.utils import synth  # noqa: E402
 from cube_slam_wu_tpu_torch.utils.metrics import ate_rmse  # noqa: E402
+from pose_graph_parity import (  # noqa: E402
+    DRIFT_PER_STEP, N_KEYFRAMES, loop_problem, mean_center_error,
+)
 from tum_parity import (  # noqa: E402
-    TILT_DEG, segment_distances, segment_match_fraction, tilt, write_offline_files, write_world,
+    TILT_DEG, segment_distances, segment_match_fraction, tilt, write_world,
 )
 
 DEV = torch.device("cuda")
@@ -398,7 +406,7 @@ def phase_kitti(t_start):
     launches = dict(cuda_kernels.LAUNCHES)
     per = n - 3
     ms_per_frame = (t1 - clock["t0"]) * 1e3 / per
-    syncs = {k: (sync1[k] - clock["sync0"][k]) / per for k in sync1}
+    syncs = hostsync.delta(clock["sync0"], sync1, per)
 
     traj = res.traj_Twc_xyzq
     for what, a in (("trajectory", traj), ("cuboids", res.cubes_minimal), ("points", res.points)):
@@ -464,7 +472,7 @@ def phase_kitti(t_start):
     emit({"phase": "kitti_path", "n_frames": n, "size": list(KITTI_WORLD["size"]),
           "settings": KITTI_SETTINGS, "ms_per_frame": ms_per_frame,
           "syncs_per_frame": syncs["syncs"], "bytes_up_per_frame": syncs["h2d_bytes"],
-          "bytes_down_per_frame": syncs["d2h_bytes"],
+          "bytes_down_per_frame": syncs["d2h_bytes"], "host_reads_by_stage": syncs["by_stage"],
           "ate_m": ate, "ate_bound_m": ATE_KITTI_BOUND_M,
           "ate_jax_cpu_f32_m": ATE_KITTI_JAX_F32_M, "ate_jax_cpu_f64_m": ATE_KITTI_JAX_F64_M,
           "report": res.frontend_report.counters(), "cube_valid": res.cube_valid.tolist(),
@@ -521,7 +529,7 @@ def write_tum_worlds(root):
     small folder, detect-cuboid argv without --out and --device)."""
     seq = synth.make_sequence(n_frames=N_FRAMES, size=SIZE, n_objects=N_OBJECTS, seed=SEED)
     folder = synth.write_tum_sequence(seq, root / "tum")
-    write_offline_files(seq, folder, seed=SEED)
+    synth.write_offline_files(seq, folder, seed=SEED)
     small = write_world(root / "tum_small")[0]
     det = seq.detections[0][0]
     np.savetxt(root / "pose0.txt", tilt(seq.T_wc[0], *TILT_DEG))
@@ -565,7 +573,7 @@ def phase_tum_two_phase(folder, seq, small, pool_result, t_start):
     sync1 = hostsync.snapshot()
     launches = dict(cuda_kernels.LAUNCHES)
     shape = cuda_kernels.LAUNCH_SHAPES.get("edt_row_min")
-    syncs = {k: (sync1[k] - sync0[k]) / n for k in sync1}
+    syncs = hostsync.delta(sync0, sync1, n)
 
     traj = res.traj_Twc_xyzq
     if not (np.isfinite(traj).all() and np.isfinite(res.cube_history).all()):
@@ -606,7 +614,7 @@ def phase_tum_two_phase(folder, seq, small, pool_result, t_start):
     emit({"phase": "tum_two_phase_path", "n_frames": n, "size": list(SIZE),
           "settings": TUM_SETTINGS, "seconds": seconds, "ms_per_frame": seconds * 1e3 / n,
           "syncs_per_frame": syncs["syncs"], "bytes_up_per_frame": syncs["h2d_bytes"],
-          "bytes_down_per_frame": syncs["d2h_bytes"],
+          "bytes_down_per_frame": syncs["d2h_bytes"], "host_reads_by_stage": syncs["by_stage"],
           "ate_m": ate, "ate_bound_m": ATE_TUM_BOUND_M,
           "ate_jax_cpu_f32_m_by_tie_rule": ATE_TUM_JAX_F32_M,
           "report": res.frontend_report.counters(), "cube_valid": res.cube_valid.tolist(),
@@ -928,6 +936,219 @@ def phase_line_layer(folder, seq, out_dir, cpu_result, t_start):
     return launches
 
 
+# ---- the Sim(3) pose graph and the runtime tools ----
+
+# The loop-closure problem of tests/test_pose_graph.py::
+# test_scale_drift_corrected_at_loop_closure at a TUM-class keyframe count
+# (tests/pose_graph_parity.py): 256 keyframes around a 10 m circle, the
+# odometry's scale drifting by 1.02 ** (39 / 255) per step (2.16x over the
+# loop, as the test's 40 keyframes at 1.02), one Sim3 loop edge; 25 LM
+# iterations of `correct_scale_drift`, in float32 and float64.
+PG_ITERATIONS = 25
+# The JAX package's float64 mean camera-centre error on the CPU on this very
+# problem, before and after the correction (tests/reference_pose_graph_jax.py
+# 256 25; chi2 0.002338932210883553, loop scale ratio 0.4619622133537916
+# against 0.46194822348893544); the port's float64 figure after must stay
+# within 1.1x of it.
+PG_JAX_F64_BEFORE_M = 5.3960831132072435
+PG_JAX_F64_AFTER_M = 0.03851178389803039
+# The card against the CPU: the JAX test's own loop (40 keyframes, 1.02 per
+# step) in float64 over 10 iterations.  From about 11 iterations on, the LM's
+# accept/reject turns compare chi2 values that differ by rounding (the loop's
+# chi2 stops moving in its 16th digit), so two devices may then part by
+# powers of 10 in lambda; before that every turn is decided by a real
+# decrease (tests/test_torch_pose_graph.py; ROADMAP queue 3 entry 12).  With
+# 256 keyframes' drift per step (1.003) the 40-keyframe loop reaches that
+# plateau sooner: this script read lambda 10x apart there at 10 iterations.
+PG_CMP = dict(n=40, k=1.02, iterations=10, limit=1e-8)
+
+
+def pose_graph_problem(n, dtype, device, k=DRIFT_PER_STEP):
+    """The n-keyframe loop (drift `k` per step) on `device`: the drifted
+    trajectory chained from the odometry, the loop measurement, the true
+    camera centres."""
+    from cube_slam_wu_tpu_torch.core.sim3 import Sim3
+    from cube_slam_wu_tpu_torch.slam import pose_graph
+
+    p = loop_problem(n, k)
+    t = {key: torch.as_tensor(v, dtype=dtype, device=device) for key, v in p.items()}
+    one = torch.ones((), dtype=dtype, device=device)
+    drifted = pose_graph.chain_odometry(
+        Sim3(t["drift_quat"], t["drift_trans"], one.expand(n - 1)),
+        Sim3(t["start_quat"], t["start_trans"], one),
+    )
+    return drifted, Sim3(t["loop_quat"], t["loop_trans"], t["loop_scale"]), p["true_centers"]
+
+
+def pose_graph_correct(drifted, loop, iterations):
+    from cube_slam_wu_tpu_torch.core.se3 import SE3
+    from cube_slam_wu_tpu_torch.slam import pose_graph
+
+    n = drifted.scale.shape[0]
+    return pose_graph.correct_scale_drift(SE3(drifted.quat, drifted.trans), drifted.scale,
+                                          n - 1, 0, loop, iterations=iterations)
+
+
+def pose_graph_solve(n, dtype, device, iterations, k=DRIFT_PER_STEP):
+    drifted, loop, _ = pose_graph_problem(n, dtype, device, k)
+    return pose_graph_correct(drifted, loop, iterations)
+
+
+def pose_graph_host(res):
+    """poses (quat, trans, scale), chi2 and lambda of a result as numpy."""
+    out = hostsync.pull((*res.poses, res.chi2, res.lambda_final))
+    return {"quat": out[0], "trans": out[1], "scale": out[2], "chi2": out[3], "lambda": out[4]}
+
+
+def pose_graph_cpu_side():
+    """The CPU side of the card-against-CPU check (run in the child process),
+    on one thread: with several, the CPU's batched float32 3x3 LU (the
+    log's solve under jacfwd) was seen to fail its pivot check and stall."""
+    torch.set_num_threads(1)
+    return pose_graph_host(pose_graph_solve(PG_CMP["n"], torch.float64, "cpu", PG_CMP["iterations"],
+                                            PG_CMP["k"]))
+
+
+def pose_graph_readings(n, dtype, smi):
+    """One timed solve on the card after one warm-up solve: ms per LM
+    iteration (sync at both ends of `correct_scale_drift`, whose first
+    linearisation is the first iteration's), peak device memory, chi2,
+    lambda, the mean camera-centre error before and after, the loop's scale
+    ratio."""
+    from cube_slam_wu_tpu_torch.slam import pose_graph
+
+    pose_graph_solve(n, dtype, DEV, 2)  # warm-up
+    drifted, loop, truth = pose_graph_problem(n, dtype, DEV)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    res = pose_graph_correct(drifted, loop, PG_ITERATIONS)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    host = pose_graph_host(res)
+    rel = pose_graph._take(res.poses, torch.tensor([0], device=DEV)).compose(
+        pose_graph._take(res.poses, torch.tensor([n - 1], device=DEV)).inverse())
+    before_c, after_c, ratio = hostsync.pull((drifted.inverse().trans, res.poses.inverse().trans,
+                                              rel.scale[0]))
+    return {"card": smi, "dtype": str(dtype).replace("torch.", ""), "n": n, "iterations": PG_ITERATIONS,
+            "ms_per_iteration": seconds * 1e3 / PG_ITERATIONS, "seconds": seconds,
+            "peak_device_bytes": peak, "peak_device_bytes_over_inputs": peak - base,
+            # lambda may pass float32's range after many rejections: inf
+            "chi2": float(host["chi2"]), "lambda_final": repr(float(host["lambda"])),
+            "mean_center_error_before_m": mean_center_error(before_c, truth),
+            "mean_center_error_after_m": mean_center_error(after_c, truth),
+            "loop_scale_ratio": float(ratio), "loop_scale_target": DRIFT_PER_STEP ** -(n - 1)}, host
+
+
+def phase_pose_graph(cpu_result, smi, t_start):
+    """The loop-closure correction on the card at 256 keyframes in float32
+    and float64, two float32 reruns bit-equal, and the card against the CPU
+    at 40 keyframes in float64."""
+    cuda_kernels.reset_launch_counts()
+    readings, hosts, failed = {}, {}, []
+    for dtype in (torch.float32, torch.float64):
+        r, host = pose_graph_readings(N_KEYFRAMES, dtype, smi)
+        readings[r["dtype"]], hosts[r["dtype"]] = r, host
+        if not (np.isfinite(host["trans"]).all() and np.isfinite(r["chi2"])):
+            failed.append(f"{r['dtype']}: not finite")
+        if not r["mean_center_error_after_m"] < 0.35 * r["mean_center_error_before_m"]:
+            failed.append(f"{r['dtype']}: centres after {r['mean_center_error_after_m']} m not "
+                          f"under 0.35 x before {r['mean_center_error_before_m']} m")
+        if not abs(r["loop_scale_ratio"] - r["loop_scale_target"]) < 0.02:
+            failed.append(f"{r['dtype']}: loop scale ratio {r['loop_scale_ratio']}")
+    f64_bound = 1.1 * PG_JAX_F64_AFTER_M
+    if not readings["float64"]["mean_center_error_after_m"] < f64_bound:
+        failed.append(f"float64: centres {readings['float64']['mean_center_error_after_m']} m above "
+                      f"1.1 x JAX's {PG_JAX_F64_AFTER_M} m")
+    reruns = [pose_graph_host(pose_graph_solve(N_KEYFRAMES, torch.float32, DEV, PG_ITERATIONS))
+              for _ in range(2)]
+    if not all(np.array_equal(reruns[0][k], reruns[1][k]) and np.array_equal(reruns[0][k], hosts["float32"][k])
+               for k in reruns[0]):
+        failed.append("float32: two reruns on the card differ")
+    card = pose_graph_host(pose_graph_solve(PG_CMP["n"], torch.float64, DEV, PG_CMP["iterations"],
+                                            PG_CMP["k"]))
+    cpu = cpu_result()
+    cmp = {k: float(np.abs(card[k] - cpu[k]).max()) for k in card}
+    cmp["lambda"] = abs(float(card["lambda"]) / float(cpu["lambda"]) - 1.0)
+    if not max(cmp.values()) < PG_CMP["limit"]:
+        failed.append(f"card and CPU differ at n={PG_CMP['n']}: {cmp}")
+    launches = dict(cuda_kernels.LAUNCHES)
+    if failed:
+        raise RuntimeError(f"pose_graph: {failed}; {readings}")
+    emit({"phase": "pose_graph", "card": smi, "problem": "tests/pose_graph_parity.py",
+          "drift_per_step": DRIFT_PER_STEP, "readings": readings,
+          "jax_cpu_float64_m": {"before": PG_JAX_F64_BEFORE_M, "after": PG_JAX_F64_AFTER_M},
+          "float64_after_bound_m": f64_bound, "float32_reruns_bit_equal": True,
+          "cpu_vs_card_float64": {"n": PG_CMP["n"], "drift_per_step": PG_CMP["k"],
+                                  "iterations": PG_CMP["iterations"], "max_abs": cmp, "limit": PG_CMP["limit"], "lambda_as": "relative"},
+          "launches": launches, "seconds_total": time.perf_counter() - t_start})
+    return launches
+
+
+# The runtime phase runs the two-phase profile in-process on the first 12
+# frames of the TUM folder, at the bit-equality reruns' window (8: the point
+# tracks need a window shorter than the run), counting the host reads by
+# stage without the torch profiler (whose trace of a whole run is millions
+# of events; `tools/profile_step.py --two-phase` takes it).
+RUNTIME_PROFILE = dict(frames=12, window=8)
+
+
+def phase_runtime(folder, smi, t_start):
+    """The native runtime on the card machine (its library must build: the
+    Python fallback must not hide a broken build), `native` against the
+    Python readers and profiler, and the two-phase profile in-process with
+    its host reads split by stage."""
+    from cube_slam_wu_tpu_torch import native
+    from cube_slam_wu_tpu_torch.tools import profile_step
+    from cube_slam_wu_tpu_torch.utils import io as uio
+    from cube_slam_wu_tpu_torch.utils import profiler
+
+    if not native.available():
+        raise RuntimeError(f"runtime: the native library did not build: {native.BUILD_LOG}")
+    table = native.read_table(folder / "truth_cam_poses.txt")
+    if not np.array_equal(table, uio.read_number_txt(folder / "truth_cam_poses.txt")):
+        raise RuntimeError("runtime: native.parse_table != utils.io.read_number_txt")
+    jpgs = sorted((folder / "raw_imgs").glob("*.jpg"))
+    pf = native.FilePrefetcher(jpgs, n_threads=4)
+    t0 = time.perf_counter()
+    same = all(pf.get(i) == p.read_bytes() for i, p in enumerate(jpgs))
+    prefetch_s = time.perf_counter() - t0
+    pf.close()
+    if not (same and len(jpgs) == N_FRAMES):
+        raise RuntimeError(f"runtime: the prefetcher's bytes differ over {len(jpgs)} JPEGs")
+    native.prof_reset()
+    profiler.GLOBAL.reset()
+    for _ in range(3):
+        native.prof_tictoc("runtime-section")
+        with profiler.section("runtime-section"):
+            torch.cuda.synchronize()
+        native.prof_tictoc("runtime-section")
+    counts = [[r.split()[1] for r in rep.splitlines() if r.split()[:1] == ["runtime-section"]]
+              for rep in (native.prof_report(), profiler.GLOBAL.report())]
+    if counts != [["3"], ["3"]]:
+        raise RuntimeError(f"runtime: the profilers' section counts read {counts}, expected 3")
+
+    cuda_kernels.reset_launch_counts()
+    summary, _ = profile_step.profile_tum(folder, "two_phase", RUNTIME_PROFILE["frames"],
+                                          trace=False, window=RUNTIME_PROFILE["window"])
+    launches = dict(cuda_kernels.LAUNCHES)
+    by = summary["host_reads_by_stage"]
+    if not np.isclose(sum(v["syncs"] for v in by.values()), summary["host_reads_per_frame"],
+                      rtol=1e-12, atol=0):
+        raise RuntimeError(f"runtime: the stages' reads do not sum to the total: {by}")
+    if not {"tum/frontend", "tum/detect_lines", "tum/proposals", "tum/point_tracks",
+            "tum/run_incremental"} <= set(by):
+        raise RuntimeError(f"runtime: stages missing from the split: {sorted(by)}")
+    emit({"phase": "runtime", "card": smi, "native": {"available": True, "build": native.BUILD_LOG},
+          "parse_table_rows": int(table.shape[0]), "prefetched_jpgs": len(jpgs),
+          "prefetch_seconds": prefetch_s,
+          "two_phase_profile": {**RUNTIME_PROFILE, **summary},
+          "launches": launches, "seconds_total": time.perf_counter() - t_start})
+    return launches
+
+
 def main() -> int:
     t_start = time.perf_counter()
     smi = nvidia_smi_line()
@@ -959,15 +1180,19 @@ def main() -> int:
         folder, seq, small, detect_argv = write_tum_worlds(root)
         cpu_side = pool.submit(tum_cpu_drives, folder, small, detect_argv, root)
         line_cpu = pool.submit(line_cpu_side, folder, root)  # after the TUM drives
+        pg_cpu = pool.submit(pose_graph_cpu_side)  # after the line layer's
         launches_tum = phase_tum_two_phase(folder, seq, small, cpu_side.result, t_start)
         launches_offline = phase_offline(folder, seq, cpu_side.result, t_start)
         launches_detect = phase_detect_cuboid(detect_argv, root, cpu_side.result, t_start)
         launches_lines = phase_line_layer(folder, seq, root, line_cpu.result, t_start)
+        launches_pg = phase_pose_graph(pg_cpu.result, smi, t_start)
+        launches_runtime = phase_runtime(folder, smi, t_start)
 
     by_path = {"main_path": launches_main, "windowed_path": launches_win,
                "kitti_path": launches_kitti, "tum_two_phase_path": launches_tum,
                "offline_path": launches_offline, "detect_cuboid": launches_detect,
-               "line_layer": launches_lines}
+               "line_layer": launches_lines, "pose_graph": launches_pg,
+               "runtime": launches_runtime}
     main_shape = per_shape[0]
     emit({"kernels": [{
         "name": "edt_row_min", "route": "cuda",

@@ -73,24 +73,76 @@ class DetectConfig:
     claim_angle_deg: float = 8.0
 
 
+_SPLIT = 134217729.0  # 2^27 + 1: Veltkamp's splitting constant for float64
+
+
+def _two_prod(a: torch.Tensor, b: torch.Tensor):
+    """a*b = p + e exactly (Dekker's TwoProduct with Veltkamp splitting);
+    every operation is its own kernel, so nothing is contracted."""
+
+    def split(x):
+        c = _SPLIT * x
+        hi = c - (c - x)
+        return hi, x - hi
+
+    p = a * b
+    ah, al = split(a)
+    bh, bl = split(b)
+    return p, ((ah * bh - p) + ah * bl + al * bh) + al * bl
+
+
+def _two_sum(a: torch.Tensor, b: torch.Tensor):
+    """a+b = s + e exactly (Knuth's TwoSum)."""
+    s = a + b
+    bb = s - a
+    return s, (a - (s - bb)) + (b - bb)
+
+
+def _add_round_to_odd(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """x+y rounded to odd: exact sums stay, an inexact one becomes the
+    neighbour of the exact value whose last significand bit is 1."""
+    s, e = _two_sum(x, y)
+    away = (e != 0) & ((e > 0) != (s > 0))  # s was rounded away from zero
+    toward_zero = torch.where(away, torch.nextafter(s, torch.zeros_like(s)), s)
+    odd = (toward_zero.view(torch.int64) | 1).view(torch.float64)
+    return torch.where(e != 0, odd, s)
+
+
+def fma64(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """a*b + c with ONE rounding, in float64 on any device, emulated by the
+    algorithm of Boldo and Melquiond ("Emulation of FMA and correctly rounded
+    sums: proved algorithms using rounding to odd", IEEE TC 2008): the exact
+    product and sum split into high and low parts, the low parts added with
+    rounding to odd, then one rounding to nearest."""
+    uh, ul = _two_prod(a, b)
+    th, tl = _two_sum(c, uh)
+    return th + _add_round_to_odd(tl, ul)
+
+
 def gaussian_blur5(gray: torch.Tensor, sigma: float = 1.0) -> torch.Tensor:
     """5x5 Gaussian blur, replicate border (cv::GaussianBlur(Size(5,5),1)),
     as shifted multiply-adds.
 
     The five taps of each pass are accumulated in tap order with ONE rounding
-    per tap (a chain of fused multiply-adds).  For float32 images the chain is
-    evaluated through float64, where the product of two float32 values is
-    exact, so the result does not depend on whether the device's compiler
-    contracts a*b+c: the blurred image — and with it every tie the
-    non-maximum suppression breaks on flat-shaded plateaus — is the same on
-    the CPU and on the card, and equals what the JAX package computes on the
-    CPU bit for bit.
+    per tap (a chain of fused multiply-adds), which is what XLA's CPU code
+    makes of the JAX package's `tensordot`; the taps are normalised by a sum
+    in tap order.  For float32 images the chain is evaluated through float64,
+    where the product of two float32 values is exact; for float64 images
+    each step is an exact fused multiply-add emulated in float64 (`fma64`).
+    Neither depends on whether a device's compiler contracts a*b+c: the
+    blurred image — and with it every tie the non-maximum suppression breaks
+    on flat-shaded plateaus — is the same on the CPU and on the card, and
+    equals what the JAX package computes on the CPU bit for bit.
     """
     xs = torch.arange(-2, 3, dtype=gray.dtype, device=gray.device)
     k = torch.exp(-(xs**2) / (2.0 * sigma**2))
-    k = k / torch.sum(k)
-    fused = gray.dtype == torch.float32
-    wide = torch.float64 if fused else gray.dtype
+    total = k[0]
+    for tap in range(1, 5):
+        total = total + k[tap]
+    k = k / total
+    f32 = gray.dtype == torch.float32
+    f64 = gray.dtype == torch.float64
+    wide = torch.float64 if f32 else gray.dtype
     kw = k.to(wide)
 
     def conv1(a, dim):
@@ -98,9 +150,14 @@ def gaussian_blur5(gray: torch.Tensor, sigma: float = 1.0) -> torch.Tensor:
         acc = None
         for tap in range(5):
             idx = torch.clamp(torch.arange(n, device=a.device) + (tap - 2), 0, n - 1)
-            term = a.index_select(dim, idx).to(wide) * kw[tap]
-            acc = term if acc is None else acc + term
-            if fused:  # round once per tap, as a fused multiply-add does
+            g = a.index_select(dim, idx).to(wide)
+            if acc is None:
+                acc = g * kw[tap]
+            elif f64:
+                acc = fma64(g, kw[tap].expand_as(g), acc)
+            else:
+                acc = acc + g * kw[tap]
+            if f32:  # round once per tap, as a fused multiply-add does
                 acc = acc.to(torch.float32).to(wide)
         return acc.to(gray.dtype)
 

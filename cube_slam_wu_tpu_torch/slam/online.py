@@ -27,8 +27,9 @@ while it runs: the Canny hysteresis convergence check, the line-merge
 convergence check and the cap-overflow flag that decides the caps-off exact
 recompute.  Each is a blocking read; `utils.hostsync` counts them and the
 run loop reports them with the pulls (`FusedRunResult.syncs_per_frame`).
-The stages carry `torch.profiler.record_function` labels (`online/...`),
-which `tools/profile_step.py` reads.
+The stages carry `utils.hostsync.stage` labels (`online/...`): profiler
+ranges, which `tools/profile_step.py` reads, that also split the host reads
+by stage.
 
 The state is updated functionally: a step returns new tensors.
 """
@@ -42,7 +43,6 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from cube_slam_wu_tpu_torch import resolve_device
 from cube_slam_wu_tpu_torch.core import rotations as rotu
@@ -273,7 +273,7 @@ def make_online_step(
         # than f32; cast on device.
         gray32 = gray_u8.to(torch.float32)
         # ---- line detection (always f32: dtype-pinned line sets) ------------
-        with record_function("online/detect_lines"):
+        with hostsync.stage("online/detect_lines"):
             lines32, lmask = detect_line_segments(gray32, detect_cfg)
         lines = lines32.to(dtype)
         gray = gray32.to(dtype)
@@ -294,7 +294,7 @@ def make_online_step(
             ],
             dim=-1,
         )
-        with record_function("online/proposals"):
+        with hostsync.stage("online/proposals"):
             res = detect_cuboids(gray, K, T0_t, xywh, det_mask, lines, lmask, cfg)
         overflow = torch.sum(res.cap_overflow).to(torch.int32)
         fallback = torch.zeros((), dtype=torch.bool, device=dev)
@@ -303,8 +303,10 @@ def make_online_step(
             # the overflow flag is read on the host: one blocking read per
             # frame, counted by utils.hostsync.
             fallback = overflow > 0
-            if hostsync.host_bool(fallback):
-                with record_function("online/proposals_caps_off"):
+            with hostsync.stage("online/cap_check"):
+                refine = hostsync.host_bool(fallback)
+            if refine:
+                with hostsync.stage("online/proposals_caps_off"):
                     res = detect_cuboids(
                         gray, K, T0_t, xywh, det_mask, lines, lmask, caps_off(cfg)
                     )
@@ -355,7 +357,7 @@ def make_online_step(
             ),
         )
         prior = state.prior
-        with record_function("online/insert_and_ba"):
+        with hostsync.stage("online/insert_and_ba"):
             if windowed:
                 (graph, prior), (chi2, _) = ba_step(
                     (graph, prior), (i, frame, first_Twc)

@@ -35,8 +35,9 @@ JAX package; the device work of a frame comes back in a few counted reads
 proposals (with the line-track match flags), one for the BA step's outputs
 and the next frame's pose and gate caches, plus the flags the detector and
 the proposal engine read while they run.  The stages carry
-`torch.profiler.record_function` labels (`kitti/...`) for
-tools/profile_step.py.
+`utils.hostsync.stage` labels (`kitti/...`; `tum/...` and `offline/...` in
+the TUM drivers): profiler ranges for tools/profile_step.py that also split
+the host reads by stage.
 """
 
 from __future__ import annotations
@@ -48,7 +49,6 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from cube_slam_wu_tpu_torch import resolve_device
 from cube_slam_wu_tpu_torch.core import rotations as rotu
@@ -367,14 +367,15 @@ class _LineTracker:
     `track` returns the device tensors (matched flags, line midpoints) that
     the caller pulls with the proposals, or None on the first frame."""
 
-    def __init__(self, gate: float):
+    def __init__(self, gate: float, stage_prefix: str = "kitti"):
         self.gate = gate
         self.prev = None
+        self.label = f"{stage_prefix}/lbd"
 
     def track(self, gray32, lines32, lmask):
         from cube_slam_wu_tpu_torch.ops import lbd as lbd_ops
 
-        with record_function("kitti/lbd"):
+        with hostsync.stage(self.label):
             desc, dvalid = lbd_ops.lbd_descriptors(gray32, lines32, lmask)
             dvalid = dvalid & lmask
             out = None
@@ -437,9 +438,12 @@ def _frontend_frames(
     depth_gate_m: float | None = None,
     spawn_range_m: float | None = None,
     range_weight_m: float | None = None,
+    stage_prefix: str = "kitti",
 ):
     """The two-phase front-end over a frame sequence (see
-    `run_online_frontend`).  `T0` is the fixed camera-to-world pose (4x4)."""
+    `run_online_frontend`).  `T0` is the fixed camera-to-world pose (4x4);
+    the stage labels are `<stage_prefix>/detect_lines`, `/proposals` and
+    `/lbd`."""
     from cube_slam_wu_tpu_torch.ops.detect import DetectConfig, detector_for
     from cube_slam_wu_tpu_torch.ops.proposal import ProposalConfig, detect_cuboids
 
@@ -461,7 +465,7 @@ def _frontend_frames(
     bbox2d = np.zeros((n, O, 4))  # associated YOLO box as [cx, cy, w, h]
     book = _TrackletBook(O)
     report = FrontendReport(n, [], [], [], [], 0)
-    lines_tr = _LineTracker(line_track_gate) if line_track_weight > 0.0 else None
+    lines_tr = _LineTracker(line_track_gate, stage_prefix) if line_track_weight > 0.0 else None
 
     start_frame = 0
     if checkpoint_path is not None:
@@ -526,7 +530,7 @@ def _frontend_frames(
         gray32 = hostsync.push(np.ascontiguousarray(gray_u8, np.uint8), dev).to(torch.float32)
         gray = gray32.to(dtype)
         # line detection ALWAYS runs in f32 (dtype-pinned line sets)
-        with record_function("kitti/detect_lines"):
+        with hostsync.stage(f"{stage_prefix}/detect_lines"):
             lines32, lmask = detect_line_segments(gray32, detect_cfg)
         lines = lines32.to(dtype)
         extra = ()
@@ -544,7 +548,7 @@ def _frontend_frames(
             prior = hostsync.push(np.asarray(book.yaw[0]), dev, dtype)
 
         def many_det(c, extra=extra):
-            with record_function("kitti/proposals"):
+            with hostsync.stage(f"{stage_prefix}/proposals"):
                 r = detect_cuboids(gray, K, T0_t, xywh_t, dmask_t, lines, lmask, c, yaw_prior=prior)
             return _pull_proposals(r, extra)
 
@@ -641,7 +645,7 @@ def run_online_frontend(
     frames = _PathFrames(frame_specs)
     T0 = first_Twc.matrix().to(torch.float64).cpu().numpy()
     return _frontend_frames(
-        frames, len(frames), K_np, T0, dtype, dev,
+        frames, len(frames), K_np, T0, dtype, dev, stage_prefix="tum",
         detect_cfg=detect_cfg, proposal_overrides=proposal_overrides,
         max_objects=max_objects, max_detections=max_detections, min_iou=min_iou,
         use_yaw_prior=use_yaw_prior, canonicalize_yaw=canonicalize_yaw,
@@ -709,9 +713,11 @@ def run_offline_slam(base_folder, iterations: int = 5, dtype=torch.float32, devi
     output_cam_poses.txt, and object 0's per-frame history."""
     dev = resolve_device(device)  # fail before touching any file
     data = load_offline_dataset(base_folder)
-    frames = build_offline_frames(data, dtype, dev)
-    first_Twc = SE3.from_xyzq(hostsync.push(data.truth_poses[0, 1:8], dev, dtype))
-    graph, chi2s, cube_hist = tracker.run_incremental(first_Twc, frames, iterations=iterations)
+    with hostsync.stage("offline/frames"):
+        frames = build_offline_frames(data, dtype, dev)
+        first_Twc = SE3.from_xyzq(hostsync.push(data.truth_poses[0, 1:8], dev, dtype))
+    with hostsync.stage("offline/ba"):
+        graph, chi2s, cube_hist = tracker.run_incremental(first_Twc, frames, iterations=iterations)
     traj, cubes, chi2, hist = hostsync.pull(
         (graph.cam_Twc().to_xyzq(), graph.cube.to_minimal(), chi2s, cube_hist)
     )
@@ -789,13 +795,14 @@ def run_online_slam(
         (_tum_image(base, i), base / "filter_2d_obj_txts" / f"{i:04d}_yolo2_0.15.txt")
         for i in range(n)
     ]
-    frames, report = run_online_frontend(
-        frame_specs, TUM_K, first_Twc, dtype,
-        detect_cfg=detect_cfg, proposal_overrides=proposal_overrides,
-        max_objects=max_objects, max_detections=max_detections, min_iou=min_iou,
-        use_yaw_prior=use_yaw_prior, line_track_weight=line_track_weight,
-        checkpoint_path=checkpoint_path, checkpoint_every=checkpoint_every, device=dev,
-    )
+    with hostsync.stage("tum/frontend"):
+        frames, report = run_online_frontend(
+            frame_specs, TUM_K, first_Twc, dtype,
+            detect_cfg=detect_cfg, proposal_overrides=proposal_overrides,
+            max_objects=max_objects, max_detections=max_detections, min_iou=min_iou,
+            use_yaw_prior=use_yaw_prior, line_track_weight=line_track_weight,
+            checkpoint_path=checkpoint_path, checkpoint_every=checkpoint_every, device=dev,
+        )
     if bbox_edge_weight > 0.0:
         frames = frames._replace(
             bbox_weight=torch.where(
@@ -808,11 +815,12 @@ def run_online_slam(
     if point_weight > 0.0:
         from cube_slam_wu_tpu_torch.slam.features import build_point_tracks
 
-        grays = _load_grays([img for img, _ in frame_specs], dev, torch.float32)
-        if grays is not None:
-            point_obs = build_point_tracks(grays, max_corners=n_points)
+        with hostsync.stage("tum/point_tracks"):
+            grays = _load_grays([img for img, _ in frame_specs], dev, torch.float32)
+            if grays is not None:
+                point_obs = build_point_tracks(grays, max_corners=n_points)
     K = hostsync.push(TUM_K, dev, dtype)
-    with record_function("tum/run_incremental"):
+    with hostsync.stage("tum/run_incremental"):
         graph, chi2s, cube_hist = tracker.run_incremental(
             first_Twc.to(dev),
             frames,
@@ -825,7 +833,8 @@ def run_online_slam(
             point_weight=point_weight,
         )
     if refine_with_points:
-        graph = _point_refinement(graph, base, n, K, dtype)
+        with hostsync.stage("tum/point_refinement"):
+            graph = _point_refinement(graph, base, n, K, dtype)
     traj, cubes, cube_valid, chi2, hist = hostsync.pull(
         (graph.cam_Twc().to_xyzq(), graph.cube.to_minimal(), graph.cube_valid, chi2s, cube_hist)
     )
@@ -1053,7 +1062,7 @@ def run_kitti_frames(
                 torch.zeros_like(frames_in.quality),
             )
         )
-    with record_function("kitti/run_incremental"):
+    with hostsync.stage("kitti/run_incremental"):
         graph, chi2s, cube_hist = tracker.run_incremental(
             first_Twc.to(dev),
             frames_in,
@@ -1283,13 +1292,13 @@ def _run_kitti_tracked(
         pt_respawn = np.zeros(n_points, bool)
         pt_ground = np.zeros(n_points, bool)
         if ftracker is not None and gray32 is not None:
-            with record_function("kitti/features"):
+            with hostsync.stage("kitti/features"):
                 pt_obs, pt_alive, pt_respawn, pt_ground = ftracker.advance(
                     gray32, boxes_c[dmask] if boxes_c is not None else None
                 )
 
         if ok:
-            with record_function("kitti/detect_lines"):
+            with hostsync.stage("kitti/detect_lines"):
                 lines32, lmask = detect_line_segments(gray32, detect_cfg)
             extra = ()
             if lines_tr is not None:
@@ -1303,7 +1312,7 @@ def _run_kitti_tracked(
             lines = lines32.to(dtype)
 
             def kitti_det(c, extra=extra):
-                with record_function("kitti/proposals"):
+                with hostsync.stage("kitti/proposals"):
                     r = detect_cuboids(gray, K_t, T_pred_t, xywh_t, dmask_t, lines, lmask, c)
                 return _pull_proposals(r, extra)
 
@@ -1333,7 +1342,7 @@ def _run_kitti_tracked(
             )
 
         frame = _assemble_frame(meas9, quality_i, has_i, bbox_i, bbox_edge_weight, dev, dtype)
-        with record_function("kitti/step"):
+        with hostsync.stage("kitti/step"):
             if use_points:
                 carry, (chi2, cube_min) = step(
                     carry,

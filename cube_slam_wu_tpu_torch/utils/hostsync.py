@@ -1,41 +1,99 @@
-"""Counting of blocking device-to-host reads.
+"""Counting of blocking device-to-host reads, in total and by stage.
 
 PyTorch runs eagerly, so every place where the host needs a value that lives
 on the device (a loop's convergence flag, an overflow flag, the final pull of
 the results) stalls the host until the device has caught up.  The port makes
 each such read through this module, so that a run loop can report honestly how
 many there were per frame and how many bytes they moved.
+
+The drivers mark their stages with `stage(label)`: a
+`torch.profiler.record_function(label)` (what `tools/profile_step.py` reads
+from a trace) that also books every read, upload and download made while it
+is open under its label, how many times the stage was entered (`entries`)
+and the host's seconds inside it (`host_s`, inner stages included; on the
+card that is enqueue time plus the blocking reads).  Stages nest; a count
+goes to the innermost open stage only, and outside every stage to `OUTSIDE`,
+so the counts by stage always sum to the totals.
 """
 
 from __future__ import annotations
 
+import contextlib
+import time
+
 import torch
+from torch.profiler import record_function
 
 COUNTS = {"syncs": 0, "d2h_bytes": 0, "h2d_bytes": 0}
+OUTSIDE = "other"
+BY_STAGE: dict = {}
+_open: list = []
 
 
 def reset() -> None:
     for k in COUNTS:
         COUNTS[k] = 0
+    BY_STAGE.clear()
 
 
 def snapshot() -> dict:
-    return dict(COUNTS)
+    """The totals, and under `by_stage` the counts of each stage label."""
+    return dict(COUNTS, by_stage={k: dict(v) for k, v in BY_STAGE.items()})
+
+
+def delta(before: dict, after: dict, per: float = 1.0) -> dict:
+    """What happened between two snapshots, divided by `per` (e.g. frames):
+    the totals and, under `by_stage`, each label that was entered or counted
+    anything in between."""
+    out = {k: (after[k] - before[k]) / per for k in COUNTS}
+    stages = {}
+    for label, c in after["by_stage"].items():
+        b = before["by_stage"].get(label, {})
+        d = {k: (c[k] - b.get(k, 0)) / per for k in c}
+        if any(d.values()):
+            stages[label] = d
+    out["by_stage"] = stages
+    return out
+
+
+def _book(label: str) -> dict:
+    return BY_STAGE.setdefault(label, dict(dict.fromkeys(COUNTS, 0), entries=0, host_s=0.0))
+
+
+def _count(key: str, n: int) -> None:
+    COUNTS[key] += n
+    _book(_open[-1] if _open else OUTSIDE)[key] += n
+
+
+@contextlib.contextmanager
+def stage(label: str):
+    """A labelled stage: a profiler range, and the reads made inside it
+    booked under `label` (see the module docstring)."""
+    with record_function(label):
+        book = _book(label)
+        book["entries"] += 1
+        _open.append(label)
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            book["host_s"] += time.perf_counter() - t0
+            _open.pop()
 
 
 def host_bool(flag: torch.Tensor) -> bool:
     """Read a scalar flag on the host (one blocking read)."""
-    COUNTS["syncs"] += 1
-    COUNTS["d2h_bytes"] += flag.element_size() * flag.numel()
+    _count("syncs", 1)
+    _count("d2h_bytes", flag.element_size() * flag.numel())
     return bool(flag)
 
 
 def pull(tensors):
     """Copy a tuple of tensors to numpy arrays as ONE counted blocking read."""
-    COUNTS["syncs"] += 1
+    _count("syncs", 1)
     out = []
     for t in tensors:
-        COUNTS["d2h_bytes"] += t.element_size() * t.numel()
+        _count("d2h_bytes", t.element_size() * t.numel())
         out.append(t.detach().cpu().numpy())
     return tuple(out)
 
@@ -45,5 +103,5 @@ def push(array, device, dtype=None) -> torch.Tensor:
     t = torch.as_tensor(array)
     if dtype is not None:
         t = t.to(dtype)
-    COUNTS["h2d_bytes"] += t.element_size() * t.numel()
+    _count("h2d_bytes", t.element_size() * t.numel())
     return t.to(device)

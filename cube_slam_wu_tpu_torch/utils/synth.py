@@ -365,3 +365,29 @@ def write_tum_sequence(seq: SynthSequence, out_dir):
         Image.fromarray(img).save(out / "raw_imgs" / f"{i:04d}_rgb_raw.jpg")
         np.savetxt(out / "filter_2d_obj_txts" / f"{i:04d}_yolo2_0.15.txt", det, fmt="%.3f")
     return out
+
+
+def write_offline_files(seq: SynthSequence, folder, seed: int, obj: int = 0, skip_every: int = 5):
+    """The offline replay's inputs for a folder `write_tum_sequence` wrote,
+    made up from the world's ground truth with seeded noise:
+    `detect_cuboids_saved.txt` rows `frame x y z yaw l w h err` (object
+    `obj`'s ground cuboid, position noise 5 cm, yaw 0.03 rad, half extents
+    3 cm, err uniform in [0.1, 0.4]; every `skip_every`-th frame has no row)
+    and `pop_cam_poses_saved.txt`, the truth rows with 1 cm of position noise
+    and 0.005 of quaternion noise (the reader normalises)."""
+    folder = pathlib.Path(folder)
+    rng = np.random.default_rng(seed)
+    truth = np.loadtxt(folder / "truth_cam_poses.txt")
+    pop = truth.copy()
+    pop[:, 1:4] += rng.normal(0.0, 0.01, (len(truth), 3))
+    pop[:, 4:8] += rng.normal(0.0, 0.005, (len(truth), 4))
+    np.savetxt(folder / "pop_cam_poses_saved.txt", pop, fmt="%.9f")
+    o = seq.objects[obj]
+    rows = []
+    for i in range(len(truth)):
+        noise = rng.normal(0.0, 1.0, 7)
+        if i % skip_every == skip_every - 1:
+            continue
+        rows.append([i, *(o.pos + 0.05 * noise[:3]), o.yaw + 0.03 * noise[3],
+                     *(o.scale + 0.03 * noise[4:7]), rng.uniform(0.1, 0.4)])
+    np.savetxt(folder / "detect_cuboids_saved.txt", np.asarray(rows), fmt="%.6f")

@@ -51,8 +51,7 @@ def pair(tmp_path_factory):
 def test_cli_detect_lines_matches_jax(pair, tmp_path, capsys, monkeypatch, extra):
     """Both commands detect in float32, the JAX command's dtype without x64
     (this suite enables x64, so its reader's image is handed over as
-    float32): in float64 the port's blur is not XLA's fused multiply-add
-    chain, and NMS ties on the flat-shaded render move a few segments."""
+    float32)."""
     from cube_slam_wu_tpu.utils import io as jio
 
     read = jio.load_image_gray

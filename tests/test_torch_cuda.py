@@ -97,3 +97,45 @@ def test_line_layer_on_card_matches_cpu():
         a, b = la[ma].numpy(), lb[mb].cpu().numpy()
         assert len(a) >= 8 and abs(len(a) - len(b)) <= 0.05 * len(a), name
         assert min(segment_match_fraction(a, b), segment_match_fraction(b, a)) >= 0.95, name
+
+
+@pytest.mark.cuda
+def test_pose_graph_on_card_matches_cpu():
+    """The Sim(3) loop-closure correction (tests/pose_graph_parity.py at the
+    JAX test's 40 keyframes and 1.02 per step, float64) on the card against
+    the CPU: poses, chi2 and lambda
+    within 1e-8 over 10 LM iterations (past about 11 the accept/reject turns
+    compare chi2 values that differ by rounding), and the emulated float64
+    fused multiply-add of the detector's blur bit-equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the card's side of the comparison)")
+    from pose_graph_parity import loop_problem
+
+    from cube_slam_wu_tpu_torch.core.se3 import SE3
+    from cube_slam_wu_tpu_torch.core.sim3 import Sim3
+    from cube_slam_wu_tpu_torch.ops import detect as tdet
+    from cube_slam_wu_tpu_torch.slam import pose_graph as pg
+
+    n = 40
+
+    def solve(device):
+        t = {k: torch.as_tensor(v, dtype=torch.float64, device=device)
+             for k, v in loop_problem(n, 1.02).items()}
+        one = torch.ones((), dtype=torch.float64, device=device)
+        drifted = pg.chain_odometry(Sim3(t["drift_quat"], t["drift_trans"], one.expand(n - 1)),
+                                    Sim3(t["start_quat"], t["start_trans"], one))
+        res = pg.correct_scale_drift(SE3(drifted.quat, drifted.trans), drifted.scale, n - 1, 0,
+                                     Sim3(t["loop_quat"], t["loop_trans"], t["loop_scale"]),
+                                     iterations=10)
+        return [x.cpu().numpy() for x in (*res.poses, res.chi2, res.lambda_final)]
+
+    cpu, card = solve("cpu"), solve("cuda")
+    for a, b in zip(cpu[:-1], card[:-1]):
+        np.testing.assert_allclose(b, a, atol=1e-8, rtol=0)
+    np.testing.assert_allclose(card[-1], cpu[-1], rtol=1e-8)
+
+    rng = np.random.default_rng(0)
+    a, b, c = (torch.from_numpy(rng.normal(size=4096)) for _ in range(3))
+    assert torch.equal(tdet.fma64(a, b, c), tdet.fma64(a.cuda(), b.cuda(), c.cuda()).cpu())
+    img = torch.from_numpy(rng.integers(0, 256, size=(480, 640)).astype(np.float64))
+    assert torch.equal(tdet.gaussian_blur5(img), tdet.gaussian_blur5(img.cuda()).cpu())

@@ -109,18 +109,17 @@ FRAMES = _frames()
 
 
 def test_gaussian_blur5():
-    """float32: bit-equal (the port evaluates the same chain of fused
-    multiply-adds; the non-maximum suppression downstream breaks exact ties
-    on flat-shaded plateaus, so an ulp here moves edge pixels).  float64:
-    1e-4 as for any reordered sum."""
+    """Bit-equal in float32 and float64: the port evaluates the same chain of
+    fused multiply-adds (in float64 through the emulated `fma64`); the
+    non-maximum suppression downstream breaks exact ties on flat-shaded
+    plateaus, so an ulp here moves edge pixels."""
     for img in FRAMES[:2]:
         np.testing.assert_array_equal(
             to_np(jdet.gaussian_blur5(to_j(img))), to_np(tdet.gaussian_blur5(to_t(img)))
         )
         img64 = img.astype(np.float64)
-        np.testing.assert_allclose(
-            to_np(jdet.gaussian_blur5(to_j(img64))), to_np(tdet.gaussian_blur5(to_t(img64))),
-            atol=1e-4,
+        np.testing.assert_array_equal(
+            to_np(jdet.gaussian_blur5(to_j(img64))), to_np(tdet.gaussian_blur5(to_t(img64)))
         )
 
 

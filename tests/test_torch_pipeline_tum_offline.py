@@ -159,3 +159,16 @@ def test_tum_parity_imports_no_jax():
     tests = pathlib.Path(__file__).resolve().parent
     env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(tests), str(tests.parent)]))
     subprocess.run([sys.executable, "-c", code], env=env, check=True, timeout=120)
+
+
+def test_pose_graph_parity_imports_no_jax():
+    """chip_smoke.py and tests/test_torch_cuda.py import
+    tests/pose_graph_parity.py on the card, where nothing of JAX may be
+    imported."""
+    code = ("import sys; import pose_graph_parity; "
+            "bad = sorted(m for m in sys.modules "
+            "if m.split('.')[0] in ('jax', 'jaxlib', 'cube_slam_wu_tpu')); "
+            "assert not bad, bad")
+    tests = pathlib.Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(tests), str(tests.parent)]))
+    subprocess.run([sys.executable, "-c", code], env=env, check=True, timeout=120)

@@ -7,12 +7,13 @@ imports nothing of JAX or of the JAX package
 `write_world` writes a synthetic world in the reference's object_slam/data
 layout: the images, the YOLO-style detections and the truth poses that
 `write_tum_sequence` writes, plus the two files of the offline replay that
-`write_offline_files` makes up from the world's ground truth.
+`utils.synth.write_offline_files` makes up from the world's ground truth.
 """
 
 import numpy as np
 
 from cube_slam_wu_tpu_torch.utils import synth as tsynth
+from cube_slam_wu_tpu_torch.utils.synth import write_offline_files
 
 # The parity world: 8 frames at 240x320, three objects, textured ground (the
 # point tracks need corners off the cuboids), seed 1, every written truth
@@ -38,30 +39,6 @@ def tilt(T, roll_deg=TILT_DEG[0], pitch_deg=TILT_DEG[1]):
     out = np.array(T, dtype=np.float64)
     out[..., :3, :3] = out[..., :3, :3] @ Rx @ Rz
     return out
-
-
-def write_offline_files(seq, folder, seed, obj=0, skip_every=5):
-    """The offline replay's inputs from the world's ground truth, with seeded
-    noise: `detect_cuboids_saved.txt` rows `frame x y z yaw l w h err` (object
-    `obj`'s ground cuboid, position noise 5 cm, yaw 0.03 rad, half extents
-    3 cm, err uniform in [0.1, 0.4]; every `skip_every`-th frame has no row)
-    and `pop_cam_poses_saved.txt`, the truth rows with 1 cm of position noise
-    and 0.005 of quaternion noise (the reader normalises)."""
-    rng = np.random.default_rng(seed)
-    truth = np.loadtxt(folder / "truth_cam_poses.txt")
-    pop = truth.copy()
-    pop[:, 1:4] += rng.normal(0.0, 0.01, (len(truth), 3))
-    pop[:, 4:8] += rng.normal(0.0, 0.005, (len(truth), 4))
-    np.savetxt(folder / "pop_cam_poses_saved.txt", pop, fmt="%.9f")
-    o = seq.objects[obj]
-    rows = []
-    for i in range(len(truth)):
-        noise = rng.normal(0.0, 1.0, 7)
-        if i % skip_every == skip_every - 1:
-            continue
-        rows.append([i, *(o.pos + 0.05 * noise[:3]), o.yaw + 0.03 * noise[3],
-                     *(o.scale + 0.03 * noise[4:7]), rng.uniform(0.1, 0.4)])
-    np.savetxt(folder / "detect_cuboids_saved.txt", np.asarray(rows), fmt="%.6f")
 
 
 def write_world(folder, world=WORLD, tilt_deg=TILT_DEG, offline_seed=1):
