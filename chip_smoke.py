@@ -22,9 +22,13 @@ plain, short-segment recovery, NFA gate, two octaves with their LBD codes
 matched k=2 — and the fused step with `DetectConfig(short_recovery=True)`
 over the main path's 30 frames), then the Sim(3) loop closure
 (`pose_graph`: `correct_scale_drift` on a 256-keyframe loop whose odometry
-drifts in scale, float32 and float64) and the runtime tools (`runtime`: the
+drifts in scale, float32 and float64), the runtime tools (`runtime`: the
 native library built and held against the Python readers, both profilers,
-the two-phase driver's host reads split by stage); checks the results
+the two-phase driver's host reads split by stage) and the parallel layer
+(`parallel`: the factor-sharded BA, the roll/pitch-sharded proposal and the
+dp batch through a real NCCL group of world size 1, the two-stream pipelined
+front end over the main path's 30 frames, and `multihost.launch` of three
+gloo ranks on the card machine's CPU); checks the results
 against the CPU and the JAX package's figures, and prints one JSON object
 per phase.  The last line is
 `{"ok": true, "device": {...}}`.  Any failing phase ends the script with a
@@ -1148,6 +1152,199 @@ def phase_runtime(folder, smi, t_start):
           "launches": launches, "seconds_total": time.perf_counter() - t_start})
     return launches
 
+# ---- the parallel layer: NCCL world 1, the two-stream pipeline, gloo ranks ----
+
+# The card is one device and NCCL takes one rank per device, so the script's
+# own process is a real NCCL group of world size 1; the ranks of a larger
+# group run on the card machine's CPU under gloo (`multihost.launch`, in the
+# child process).  The factor-sharded BA runs on `multihost._build_ba_graph`'s
+# structure at the main path's capacity (64 frames, 3 objects), 5 LM
+# iterations, against `slam/ba.py::optimize` on the card in both dtypes, held
+# bit-equal in poses, cubes, chi2 and lambda_final: at world size 1 every row
+# is owned and the reduction is a copy, so the two LMs do the same arithmetic.
+PAR_BA = dict(capacity=64, n_objects=3, iterations=5)
+# The proposals of the TUM front end (`run_online_frontend`: the detector's
+# 384 line slots, nominal skew 2.0, rank margin 2e-3, bilinear chamfer; roll
+# and pitch sampled on every frame after the first) at the main path's
+# world's first pose tilted by TILT_DEG (queue 3 entry 2), in float32.  Frame
+# 0's strongest box (highest confidence, first on ties) goes through
+# `detect_cuboid_sharded`, its three boxes through the dp batch (frame 0's
+# configuration: no roll/pitch sampling), and every frame's strongest box
+# through the pipeline.  Each is held bit-equal to its single-device path.
+PAR_PROPOSAL = dict(nominal_skew_ratio=2.0, rank_margin=2e-3, bilinear_dist=True)
+PAR_PROCESSES = 3  # gloo ranks on the card machine's CPU
+
+
+def parallel_cpu_side():
+    """`multihost.launch(3)` on the card machine's CPU (gloo); run in the
+    child process.  Returns (the workers' result lines, seconds)."""
+    from cube_slam_wu_tpu_torch.parallel import multihost
+
+    t0 = time.perf_counter()
+    lines = multihost.launch(PAR_PROCESSES, device="cpu", timeout_s=300)
+    return lines, time.perf_counter() - t0
+
+
+def strongest_box(rows):
+    """[x y w h] (0-based) of the highest-confidence detection row (1-based
+    `x y w h conf`), the first on ties."""
+    r = rows[int(np.argmax(rows[:, 4]))]
+    return [r[0] - 1.0, r[1] - 1.0, r[2], r[3]]
+
+
+def timed(fn):
+    torch.cuda.synchronize()
+    before = hostsync.snapshot()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, hostsync.delta(before, hostsync.snapshot())
+
+
+def results_equal(a, b):
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def phase_parallel(seq, mh_result, smi, t_start):
+    """The parallel layer on the card: the factor-sharded BA, the
+    roll/pitch-sharded proposal and the dp batch through a real NCCL group of
+    world size 1, the two-stream pipelined front end over the 30 frames, and
+    the 3-rank gloo run of the child process."""
+    import torch.distributed as dist
+
+    from cube_slam_wu_tpu_torch.ops.detect import DetectConfig, detect_line_segments
+    from cube_slam_wu_tpu_torch.ops.proposal import (
+        ProposalConfig, detect_cuboid_single, detect_cuboids,
+    )
+    from cube_slam_wu_tpu_torch.parallel import multihost, pipelined, sharded_ba
+    from cube_slam_wu_tpu_torch.parallel.sharded_proposal import (
+        detect_cuboid_sharded, detect_cuboids_dp,
+    )
+    from cube_slam_wu_tpu_torch.slam import ba
+
+    cuda_kernels.reset_launch_counts()
+    failed = []
+    t0 = time.perf_counter()
+    multihost.initialize(f"tcp://127.0.0.1:{multihost._free_port()}", 1, 0, DEV)
+    group = multihost.global_group()
+    init_s = time.perf_counter() - t0
+    backend = dist.get_backend(group)
+    if backend != "nccl":
+        failed.append(f"process group backend {backend}, not nccl")
+
+    # ---- the factor-sharded BA against the local LM, both dtypes ----------
+    ba_read = {}
+    for dtype in (torch.float32, torch.float64):
+        name = str(dtype).replace("torch.", "")
+        graph = multihost._build_ba_graph(PAR_BA["capacity"], dtype, DEV, PAR_BA["n_objects"])
+        graph = sharded_ba.replicate(graph, group, DEV)
+        opt = sharded_ba.make_sharded_optimize(group, iterations=PAR_BA["iterations"])
+        opt(graph)  # warm-up
+        sh, sh_s, _ = timed(lambda: opt(graph))
+        loc, loc_s, _ = timed(lambda: ba.optimize(graph, iterations=PAR_BA["iterations"]))
+        pairs = {"quat": (sh.cam_Tcw.quat, loc.cam_Tcw.quat),
+                 "trans": (sh.cam_Tcw.trans, loc.cam_Tcw.trans),
+                 "cube": (sh.cube.to_minimal(), loc.cube.to_minimal()),
+                 "chi2": (sh.chi2, loc.chi2), "lambda_final": (sh.lambda_final, loc.lambda_final)}
+        differ = [k for k, (a, b) in pairs.items() if not torch.equal(a, b)]
+        ba_read[name] = {"chi2": float(sh.chi2), "chi2_local": float(loc.chi2),
+                         "lambda": float(sh.lambda_final), "lambda_local": float(loc.lambda_final),
+                         "bit_equal_to_local": not differ,
+                         "sharded_ms_per_iteration": sh_s * 1e3 / PAR_BA["iterations"],
+                         "local_ms_per_iteration": loc_s * 1e3 / PAR_BA["iterations"]}
+        if differ or not np.isfinite(float(sh.chi2)):
+            failed.append(f"sharded BA {name} differs from the local LM in {differ}: {ba_read[name]}")
+
+    # ---- the roll/pitch-sharded proposal and the dp batch, frame 0 -----------
+    K = torch.as_tensor(seq.K).to(DEV, torch.float32)
+    T0_np = tilt(seq.T_wc[0])
+    T0 = torch.as_tensor(T0_np).to(DEV, torch.float32)
+    det_cfg = DetectConfig()
+    gray0 = torch.as_tensor(seq.images[0]).to(DEV, torch.float32)
+    lines, lmask = detect_line_segments(gray0, det_cfg)
+    L = int(lines.shape[0])
+    box0 = torch.tensor(strongest_box(seq.detections[0]), dtype=torch.float32, device=DEV)
+    cfg_rp = ProposalConfig(max_lines=L, sample_cam_roll_pitch=True, **PAR_PROPOSAL)
+    detect_cuboid_sharded(gray0, K, T0, box0, lines, lmask, cfg_rp, group)  # warm-up
+    single, single_s, _ = timed(lambda: detect_cuboid_single(gray0, K, T0, box0, lines, lmask, cfg_rp))
+    sharded, sharded_s, _ = timed(lambda: detect_cuboid_sharded(gray0, K, T0, box0, lines, lmask,
+                                                                cfg_rp, group))
+    if not results_equal(sharded, single):
+        failed.append("detect_cuboid_sharded differs from detect_cuboid_single")
+    rows0 = seq.detections[0]
+    boxes0 = torch.tensor([[r[0] - 1.0, r[1] - 1.0, r[2], r[3]] for r in rows0],
+                          dtype=torch.float32, device=DEV)
+    bmask0 = torch.ones(len(rows0), dtype=torch.bool, device=DEV)
+    cfg_f0 = ProposalConfig(max_lines=L, **PAR_PROPOSAL)
+    detect_cuboids_dp(gray0, K, T0, boxes0, bmask0, lines, lmask, cfg_f0, group)  # warm-up
+    batch, batch_s, _ = timed(lambda: detect_cuboids(gray0, K, T0, boxes0, bmask0, lines, lmask, cfg_f0))
+    dp, dp_s, _ = timed(lambda: detect_cuboids_dp(gray0, K, T0, boxes0, bmask0, lines, lmask,
+                                                  cfg_f0, group))
+    if not results_equal(dp, batch):
+        failed.append("detect_cuboids_dp differs from detect_cuboids")
+    if not bool(single.valid) or int(batch.valid.sum()) < 1:
+        failed.append(f"no valid proposal: sharded {bool(single.valid)}, dp {batch.valid.tolist()}")
+    dist.destroy_process_group()
+    if dist.is_initialized():
+        failed.append("the NCCL group outlived the phase")
+
+    # ---- the two-stream pipelined front end over the 30 frames -------------
+    grays = np.stack(seq.images).astype(np.float32)
+    boxes = np.array([strongest_box(d) for d in seq.detections], np.float32)
+    over = dict(PAR_PROPOSAL, sample_cam_roll_pitch=True)
+    seq_run = pipelined.make_sequential_frontend(DEV, seq.K, T0_np, det_cfg, over)
+    pipe_run = pipelined.make_pipelined_frontend((DEV, DEV), seq.K, T0_np, det_cfg, over)
+    seq_run(grays[:3], boxes[:3])  # warm-up
+    pipe_run(grays[:3], boxes[:3])
+    n = len(grays)
+    runs = {}
+    for name, run in (("sequential", seq_run), ("pipelined", pipe_run),
+                      ("pipelined_rerun", pipe_run), ("sequential_rerun", seq_run)):
+        before = dict(cuda_kernels.LAUNCHES)
+        res, secs, syncs = timed(lambda run=run: run(grays, boxes))
+        runs[name] = dict(res=res, ms_per_frame=secs * 1e3 / n,
+                          syncs_per_frame=syncs["syncs"] / n,
+                          syncs_by_stage={lab: v["syncs"] / n for lab, v in syncs["by_stage"].items()},
+                          edt_row_min=cuda_kernels.LAUNCHES["edt_row_min"] - before["edt_row_min"])
+    ref = runs["sequential"]["res"]
+    for name in ("pipelined", "pipelined_rerun", "sequential_rerun"):
+        if not results_equal(runs[name]["res"], ref):
+            failed.append(f"{name} differs from the sequential glue")
+    n_valid = int(ref.valid.sum())
+    if n_valid < n // 2:
+        failed.append(f"only {n_valid} of {n} frames have a valid proposal")
+    if runs["pipelined"]["edt_row_min"] != n:
+        failed.append(f"the pipelined run launched edt_row_min {runs['pipelined']['edt_row_min']} "
+                      f"times over {n} frames")
+
+    # ---- the 3-rank gloo run of the child process ---------------------------
+    mh_lines, mh_seconds = mh_result()
+    if len(mh_lines) != PAR_PROCESSES or not all(
+            ln.startswith(f"OK p{i}/{PAR_PROCESSES} device=cpu") for i, ln in enumerate(mh_lines)):
+        failed.append(f"multihost.launch({PAR_PROCESSES}): {mh_lines}")
+
+    launches = dict(cuda_kernels.LAUNCHES)
+    if launches["edt_row_min"] == 0:
+        failed.append("edt_row_min was not launched on the parallel paths")
+    if failed:
+        raise RuntimeError(f"parallel: {failed}")
+    emit({"phase": "parallel", "card": smi,
+          "nccl_world_1": {
+              "init_seconds": init_s, "backend": backend, "ba": {**PAR_BA, "by_dtype": ba_read},
+              "sharded_proposal": {"box": box0.tolist(), "roll_pitch_samples": 25,
+                                   "bit_equal_to_single": True, "ms": sharded_s * 1e3,
+                                   "single_ms": single_s * 1e3, "valid": bool(single.valid)},
+              "dp_batch": {"boxes": len(rows0), "bit_equal_to_detect_cuboids": True,
+                           "ms": dp_s * 1e3, "detect_cuboids_ms": batch_s * 1e3,
+                           "valid": batch.valid.tolist()}},
+          "pipelined": {"devices": [str(DEV), str(DEV)], "n_frames": n, "size": list(SIZE),
+                        "valid_frames": n_valid, "bit_equal_to_sequential": True,
+                        "reruns_bit_equal": True,
+                        **{name: {k: v for k, v in r.items() if k != "res"} for name, r in runs.items()}},
+          "multihost_gloo_cpu": {"processes": PAR_PROCESSES, "lines": mh_lines, "seconds": mh_seconds},
+          "launches": launches, "seconds_total": time.perf_counter() - t_start})
+    return launches
+
 
 def main() -> int:
     t_start = time.perf_counter()
@@ -1181,18 +1378,20 @@ def main() -> int:
         cpu_side = pool.submit(tum_cpu_drives, folder, small, detect_argv, root)
         line_cpu = pool.submit(line_cpu_side, folder, root)  # after the TUM drives
         pg_cpu = pool.submit(pose_graph_cpu_side)  # after the line layer's
+        mh_cpu = pool.submit(parallel_cpu_side)  # after the pose graph's
         launches_tum = phase_tum_two_phase(folder, seq, small, cpu_side.result, t_start)
         launches_offline = phase_offline(folder, seq, cpu_side.result, t_start)
         launches_detect = phase_detect_cuboid(detect_argv, root, cpu_side.result, t_start)
         launches_lines = phase_line_layer(folder, seq, root, line_cpu.result, t_start)
         launches_pg = phase_pose_graph(pg_cpu.result, smi, t_start)
         launches_runtime = phase_runtime(folder, smi, t_start)
+        launches_parallel = phase_parallel(seq, mh_cpu.result, smi, t_start)
 
     by_path = {"main_path": launches_main, "windowed_path": launches_win,
                "kitti_path": launches_kitti, "tum_two_phase_path": launches_tum,
                "offline_path": launches_offline, "detect_cuboid": launches_detect,
                "line_layer": launches_lines, "pose_graph": launches_pg,
-               "runtime": launches_runtime}
+               "runtime": launches_runtime, "parallel": launches_parallel}
     main_shape = per_shape[0]
     emit({"kernels": [{
         "name": "edt_row_min", "route": "cuda",

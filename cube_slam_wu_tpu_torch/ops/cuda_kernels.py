@@ -29,6 +29,7 @@ import os
 import pathlib
 import shutil
 import subprocess
+import threading
 import time
 
 import torch
@@ -46,19 +47,23 @@ MAX_WIDTH = 2048  # the row of `a` is staged in shared memory
 EXACT_LIMIT = 2**24
 
 # Launch counts, one per kernel: a wrapper adds one where it launches its
-# kernel and nowhere else.  LAUNCH_SHAPES holds the input shape of each
+# kernel and nowhere else (under `_count_lock`: the pipelined front end
+# launches from two threads).  LAUNCH_SHAPES holds the input shape of each
 # kernel's last launch.
 LAUNCHES = {"edt_row_min": 0}
 LAUNCH_SHAPES: dict = {}
+_count_lock = threading.Lock()
 # What the last build did: the nvcc command and the seconds it took.
 BUILD_LOG: dict = {}
 
 _libs: dict = {}
+_load_lock = threading.Lock()
 
 
 def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _count_lock:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
 
 
 def build_dir() -> pathlib.Path:
@@ -119,11 +124,12 @@ def finish_build(handle) -> None:
 
 
 def _load(name: str) -> ctypes.CDLL:
-    lib = _libs.get(name)
-    if lib is None:
-        finish_build(start_build(name))
-        lib = ctypes.CDLL(nvcc_command(name)[-2])
-        _libs[name] = lib
+    with _load_lock:  # threads that launch at once build and load it once
+        lib = _libs.get(name)
+        if lib is None:
+            finish_build(start_build(name))
+            lib = ctypes.CDLL(nvcc_command(name)[-2])
+            _libs[name] = lib
     return lib
 
 
@@ -196,8 +202,9 @@ def edt_row_min(g2: torch.Tensor) -> torch.Tensor:
     with torch.cuda.device(g2.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.edt_row_min_launch(g2.data_ptr(), out.data_ptr(), rows, w, stream)
-    LAUNCHES["edt_row_min"] += 1
-    LAUNCH_SHAPES["edt_row_min"] = tuple(g2.shape)
+    with _count_lock:
+        LAUNCHES["edt_row_min"] += 1
+        LAUNCH_SHAPES["edt_row_min"] = tuple(g2.shape)
     if err != 0:
         raise RuntimeError(f"edt_row_min: kernel launch failed (cudaError {err})")
     return out

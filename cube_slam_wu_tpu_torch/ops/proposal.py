@@ -1117,38 +1117,25 @@ def _fuse_and_rank(
     return result, internals
 
 
-def detect_cuboids(
-    gray: torch.Tensor,
-    K: torch.Tensor,
-    T_wc: torch.Tensor,
-    bboxes: torch.Tensor,
-    bbox_mask: torch.Tensor,
-    lines: torch.Tensor,
-    line_mask: torch.Tensor,
-    cfg: ProposalConfig = ProposalConfig(),
-    return_internals: bool = False,
-    yaw_prior=None,
-):
-    """Detect cuboids for a padded batch of 2D boxes on one image.
+class _Setup(NamedTuple):
+    """What the hypothesis grid takes besides the image: the floored boxes
+    (left, top, w, h, right) as (B, 1) columns, the left-right-aligned lines,
+    the camera's raw Euler angles, the roll/pitch samples (RP,), the yaw
+    samples (Y,) and the top-edge samples (B, T) with their validity."""
 
-    The reference loops over detections (box_proposal_detail.cpp:135); here
-    the boxes are a batch axis of the whole per-box program (each box gets
-    its own ROI distance map and hypothesis grid, all maps from one EDT
-    kernel launch).  gray (H, W) float; K (3, 3); T_wc (4, 4); bboxes (B, 4)
-    [x y w h] (0-based pixels); bbox_mask (B,); lines (L, 4) padded segments
-    with line_mask (L,).  Returns a ProposalResult with leading axis B whose
-    `valid` is ANDed with bbox_mask; with `cfg.max_cuboid_num` N > 1 every
-    field has a second axis N, ranks best first, and `valid` is (B, N).
-    `yaw_prior` (scalar or (B,) tensor, or None) penalises each hypothesis by
-    `cfg.yaw_prior_weight` times its yaw distance, modulo 90 deg, from the
-    prior.  All tensors live on gray's device.
+    box: tuple
+    lines: torch.Tensor
+    euler_raw: torch.Tensor
+    roll_flat: torch.Tensor
+    pitch_flat: torch.Tensor
+    yaws: torch.Tensor
+    top_xs: torch.Tensor
+    top_ok: torch.Tensor
 
-    Mirrors detect_cuboid (box_proposal_detail.cpp:65-861).  Bbox-height
-    sampling (`cfg.sample_bbox_height`, whether_sample_bbox_height in the
-    reference) runs the grid at 3 bottom expansions {0, r/2, r} with
-    per-sample score fusion; both reference drivers default it off
-    (detect_3d_cuboid/src/main.cpp:68, object_slam/src/main_obj.cpp:498).
-    """
+
+def _proposal_setup(gray, K, T_wc, bboxes, lines, cfg: ProposalConfig) -> _Setup:
+    """The sample grids of `detect_cuboids` (box_proposal_detail.cpp:65-237)
+    for boxes (B, 4) [x y w h], in gray's dtype and on its device."""
     dtype = gray.dtype
     dev = gray.device
     bboxes = bboxes.to(dtype)
@@ -1185,15 +1172,51 @@ def detect_cuboids(
     ks = torch.arange(cfg.max_top_samples, dtype=dtype, device=dev)
     top_xs = left + 5.0 + ks * step  # (B, T)
     top_ok = (top_xs <= right - 5.0) & (step >= 1.0)
+    return _Setup((left, top, w, h, right), lines, euler_raw, roll_flat, pitch_flat,
+                  yaws, top_xs, top_ok)
 
-    rp_valid = torch.ones(roll_flat.shape, dtype=torch.bool, device=dev)
+
+def detect_cuboids(
+    gray: torch.Tensor,
+    K: torch.Tensor,
+    T_wc: torch.Tensor,
+    bboxes: torch.Tensor,
+    bbox_mask: torch.Tensor,
+    lines: torch.Tensor,
+    line_mask: torch.Tensor,
+    cfg: ProposalConfig = ProposalConfig(),
+    return_internals: bool = False,
+    yaw_prior=None,
+):
+    """Detect cuboids for a padded batch of 2D boxes on one image.
+
+    The reference loops over detections (box_proposal_detail.cpp:135); here
+    the boxes are a batch axis of the whole per-box program (each box gets
+    its own ROI distance map and hypothesis grid, all maps from one EDT
+    kernel launch).  gray (H, W) float; K (3, 3); T_wc (4, 4); bboxes (B, 4)
+    [x y w h] (0-based pixels); bbox_mask (B,); lines (L, 4) padded segments
+    with line_mask (L,).  Returns a ProposalResult with leading axis B whose
+    `valid` is ANDed with bbox_mask; with `cfg.max_cuboid_num` N > 1 every
+    field has a second axis N, ranks best first, and `valid` is (B, N).
+    `yaw_prior` (scalar or (B,) tensor, or None) penalises each hypothesis by
+    `cfg.yaw_prior_weight` times its yaw distance, modulo 90 deg, from the
+    prior.  All tensors live on gray's device.
+
+    Mirrors detect_cuboid (box_proposal_detail.cpp:65-861).  Bbox-height
+    sampling (`cfg.sample_bbox_height`, whether_sample_bbox_height in the
+    reference) runs the grid at 3 bottom expansions {0, r/2, r} with
+    per-sample score fusion; both reference drivers default it off
+    (detect_3d_cuboid/src/main.cpp:68, object_slam/src/main_obj.cpp:498).
+    """
+    st = _proposal_setup(gray, K, T_wc, bboxes, lines, cfg)
+    rp_valid = torch.ones(st.roll_flat.shape, dtype=torch.bool, device=gray.device)
     hblock, aux = hypothesis_grid(
-        gray, K, T_wc, (left, top, w, h, right), lines, line_mask, cfg,
-        euler_raw, roll_flat, pitch_flat, rp_valid, yaws, top_xs, top_ok,
+        gray, K, T_wc, st.box, st.lines, line_mask, cfg,
+        st.euler_raw, st.roll_flat, st.pitch_flat, rp_valid, st.yaws, st.top_xs, st.top_ok,
     )
     out = _fuse_and_rank(
-        hblock, aux, cfg, euler_raw, yaw_prior, return_internals,
-        extras=dict(yaws=yaws, top_xs=top_xs, top_ok=top_ok),
+        hblock, aux, cfg, st.euler_raw, yaw_prior, return_internals,
+        extras=dict(yaws=st.yaws, top_xs=st.top_xs, top_ok=st.top_ok),
     )
     res = out[0] if return_internals else out
     if cfg.max_cuboid_num > 1:  # valid is (B, N): mask per box

@@ -14,11 +14,16 @@ and the host's seconds inside it (`host_s`, inner stages included; on the
 card that is enqueue time plus the blocking reads).  Stages nest; a count
 goes to the innermost open stage only, and outside every stage to `OUTSIDE`,
 so the counts by stage always sum to the totals.
+
+The counts are safe to make from several threads at once (the pipelined
+front end runs its two stages in two): each thread has its own stack of open
+stages, and every update of the shared counts holds one lock.
 """
 
 from __future__ import annotations
 
 import contextlib
+import threading
 import time
 
 import torch
@@ -27,18 +32,28 @@ from torch.profiler import record_function
 COUNTS = {"syncs": 0, "d2h_bytes": 0, "h2d_bytes": 0}
 OUTSIDE = "other"
 BY_STAGE: dict = {}
-_open: list = []
+_lock = threading.Lock()
+_local = threading.local()  # .open: this thread's stack of open stage labels
+
+
+def _open() -> list:
+    stack = getattr(_local, "open", None)
+    if stack is None:
+        stack = _local.open = []
+    return stack
 
 
 def reset() -> None:
-    for k in COUNTS:
-        COUNTS[k] = 0
-    BY_STAGE.clear()
+    with _lock:
+        for k in COUNTS:
+            COUNTS[k] = 0
+        BY_STAGE.clear()
 
 
 def snapshot() -> dict:
     """The totals, and under `by_stage` the counts of each stage label."""
-    return dict(COUNTS, by_stage={k: dict(v) for k, v in BY_STAGE.items()})
+    with _lock:
+        return dict(COUNTS, by_stage={k: dict(v) for k, v in BY_STAGE.items()})
 
 
 def delta(before: dict, after: dict, per: float = 1.0) -> dict:
@@ -57,12 +72,15 @@ def delta(before: dict, after: dict, per: float = 1.0) -> dict:
 
 
 def _book(label: str) -> dict:
+    """The counts of `label` (call with `_lock` held)."""
     return BY_STAGE.setdefault(label, dict(dict.fromkeys(COUNTS, 0), entries=0, host_s=0.0))
 
 
 def _count(key: str, n: int) -> None:
-    COUNTS[key] += n
-    _book(_open[-1] if _open else OUTSIDE)[key] += n
+    stack = _open()
+    with _lock:
+        COUNTS[key] += n
+        _book(stack[-1] if stack else OUTSIDE)[key] += n
 
 
 @contextlib.contextmanager
@@ -70,15 +88,18 @@ def stage(label: str):
     """A labelled stage: a profiler range, and the reads made inside it
     booked under `label` (see the module docstring)."""
     with record_function(label):
-        book = _book(label)
-        book["entries"] += 1
-        _open.append(label)
+        with _lock:
+            _book(label)["entries"] += 1
+        stack = _open()
+        stack.append(label)
         t0 = time.perf_counter()
         try:
             yield
         finally:
-            book["host_s"] += time.perf_counter() - t0
-            _open.pop()
+            seconds = time.perf_counter() - t0
+            with _lock:
+                _book(label)["host_s"] += seconds
+            stack.pop()
 
 
 def host_bool(flag: torch.Tensor) -> bool:

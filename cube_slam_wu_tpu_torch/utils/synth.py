@@ -391,3 +391,44 @@ def write_offline_files(seq: SynthSequence, folder, seed: int, obj: int = 0, ski
         rows.append([i, *(o.pos + 0.05 * noise[:3]), o.yaw + 0.03 * noise[3],
                      *(o.scale + 0.03 * noise[4:7]), rng.uniform(0.1, 0.4)])
     np.savetxt(folder / "detect_cuboids_saved.txt", np.asarray(rows), fmt="%.6f")
+
+
+def proposal_demo_inputs(dtype=np.float64, img_hw=(192, 256), n_lines=16, device=None):
+    """Rendered cuboid scene + ground-truth edge segments packaged as
+    `detect_cuboid_single` inputs (gray, K, T_wc, bbox, lines, mask).
+
+    The proposal grid produces a VALID winner on this scene (random noise
+    yields none, which would make sharded==single checks vacuous).  `dtype`
+    is a numpy or torch floating type; with `device=None` the six are numpy
+    arrays, else tensors on `device` (`mask` is bool either way)."""
+    H, W = img_hw
+    obj = SynthObject(np.array([0.3, 3.8, 0.42]), 0.45, np.array([0.55, 0.4, 0.42]))
+    T = camera_pose(0.0)
+    K_np = np.array(
+        [[0.75 * W, 0, W / 2.0], [0, 0.75 * W, H / 2.0 - 0.05 * H], [0, 0, 1.0]]
+    )
+    img = render_frame(T, [obj], K_np, img_hw)
+    det = detect_objects(T, [obj], K_np, img_hw, noise_px=0.0, min_height_px=10)
+    if len(det) != 1:
+        raise RuntimeError("synth object must be fully visible")
+    cw = _corners_world(obj)
+    R_cw = T[:3, :3].T
+    cc = cw @ R_cw.T + (-R_cw @ T[:3, 3])[None, :]
+    uv = cc @ K_np.T
+    uv = uv[:, :2] / uv[:, 2:3]
+    edges = [(0, 1), (1, 2), (2, 3), (3, 0), (4, 5), (5, 6), (6, 7), (7, 4),
+             (0, 4), (1, 5), (2, 6), (3, 7)]
+    lines = np.zeros((n_lines, 4))
+    for k, (a, b) in enumerate(edges):
+        lines[k] = [*uv[a], *uv[b]]
+    mask = np.zeros(n_lines, bool)
+    mask[: len(edges)] = True
+    bbox = np.array([det[0, 0] - 1.0, det[0, 1] - 1.0, det[0, 2], det[0, 3]])
+    np_dtype = np.dtype(str(dtype).replace("torch.", "")) if "torch." in str(dtype) else np.dtype(dtype)
+    out = [a.astype(np_dtype) for a in (img.astype(np.float64), K_np, T, bbox, lines)]
+    out.append(mask)
+    if device is None:
+        return tuple(out)
+    import torch
+
+    return tuple(torch.as_tensor(a).to(device) for a in out)

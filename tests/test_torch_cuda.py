@@ -139,3 +139,37 @@ def test_pose_graph_on_card_matches_cpu():
     assert torch.equal(tdet.fma64(a, b, c), tdet.fma64(a.cuda(), b.cuda(), c.cuda()).cpu())
     img = torch.from_numpy(rng.integers(0, 256, size=(480, 640)).astype(np.float64))
     assert torch.equal(tdet.gaussian_blur5(img), tdet.gaussian_blur5(img.cuda()).cpu())
+
+
+@pytest.mark.cuda
+def test_sharded_ba_world_one_on_nccl():
+    """The factor-sharded BA through a real NCCL group of world size 1 on the
+    card is bit-equal to `slam/ba.py::optimize` there: poses, cubes, chi2 and
+    lambda_final.  At world size 1 every row is owned and the all-reduce is a
+    copy, so the sharded LM does the local LM's arithmetic; a drift in its
+    accept rule or damping shows here.  (Ranks beyond one need a card each
+    under NCCL; the multi-rank parity runs on the CPU with gloo,
+    tests/test_torch_sharded_ba.py.)"""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (NCCL runs on the card only)")
+    import torch.distributed as dist
+
+    from cube_slam_wu_tpu_torch.parallel import multihost, sharded_ba
+    from cube_slam_wu_tpu_torch.slam import ba
+
+    dev = torch.device("cuda", 0)
+    multihost.initialize(f"tcp://127.0.0.1:{multihost._free_port()}", 1, 0, dev)
+    try:
+        group = multihost.global_group()
+        assert dist.get_backend(group) == "nccl"
+        graph = sharded_ba.replicate(multihost._build_ba_graph(16, torch.float64), group, dev)
+        got = sharded_ba.make_sharded_optimize(group, iterations=3)(graph)
+        ref = ba.optimize(graph, iterations=3)
+        for name, a, b in (("quat", got.cam_Tcw.quat, ref.cam_Tcw.quat),
+                           ("trans", got.cam_Tcw.trans, ref.cam_Tcw.trans),
+                           ("cube", got.cube.to_minimal(), ref.cube.to_minimal()),
+                           ("chi2", got.chi2, ref.chi2),
+                           ("lambda_final", got.lambda_final, ref.lambda_final)):
+            assert torch.equal(a, b), name
+    finally:
+        dist.destroy_process_group()
