@@ -17,6 +17,11 @@ Hough formulation with no data-dependent control flow:
      the parallel analogue of LSD's region growing / EDLine's chain walking,
   6. duplicate removal + collinear merging (ops.lines.merge_break_lines).
 
+The host's time splits into three `utils.hostsync` stages: `lines/hough`
+(steps 1-4), `lines/merge` (the merge of step 6, one flag read a round) and
+`lines/runs`, the whole call, whose self time is the rest (step 5, the
+duplicate removal, the compactions and the final top-K).
+
 Every selection is order-stable (`ops.topk.stable_top_k`) and the Hough vote
 is accumulated deterministically, so two runs on the same image give the same
 bits on the card as well.
@@ -32,6 +37,7 @@ import torch
 from cube_slam_wu_tpu_torch.ops import image as image_ops
 from cube_slam_wu_tpu_torch.ops import lines as line_ops
 from cube_slam_wu_tpu_torch.ops.topk import stable_top_k
+from cube_slam_wu_tpu_torch.utils import hostsync
 
 
 @dataclasses.dataclass(frozen=True)
@@ -305,6 +311,7 @@ def nfa_log10(counts, n_run, p0, n_peaks: int, NB: int):
     return math.log10(n_peaks * NB * NB / 2.0) + torch.log10(torch.clamp(tail, min=1e-300))
 
 
+@hostsync.stage("lines/runs")
 def detect_line_segments(
     gray: torch.Tensor,
     cfg: DetectConfig = DetectConfig(),
@@ -323,14 +330,15 @@ def detect_line_segments(
     dtype = gray.dtype
     dev = gray.device
     H, W = gray.shape
-    (flat_w, flat_x, flat_y, flat_psi), (keep, mag, psi) = edge_pixels(gray, cfg, suppress)
+    with hostsync.stage("lines/hough"):
+        (flat_w, flat_x, flat_y, flat_psi), (keep, mag, psi) = edge_pixels(gray, cfg, suppress)
 
-    # ---- Hough accumulation + peak extraction ------------------------------
-    NT, NR, diag = hough_dims(H, W, cfg)
-    rho_off = diag
-    acc = hough_accumulate(flat_w, flat_x, flat_y, flat_psi, H, W, cfg)
-    P = cfg.n_peaks
-    top_vals, top_idx = hough_peaks(acc, cfg)
+        # ---- Hough accumulation + peak extraction --------------------------
+        NT, NR, diag = hough_dims(H, W, cfg)
+        rho_off = diag
+        acc = hough_accumulate(flat_w, flat_x, flat_y, flat_psi, H, W, cfg)
+        P = cfg.n_peaks
+        top_vals, top_idx = hough_peaks(acc, cfg)
     pk_t = top_idx // NR
     pk_r = top_idx % NR
     pk_valid = top_vals > 0
@@ -515,14 +523,15 @@ def detect_line_segments(
         seg_mask = seg_mask[keep_idx]
 
     segs = line_ops.align_left_right(segs)
-    merged, merged_mask = line_ops.merge_break_lines(
-        segs,
-        seg_mask,
-        cfg.merge_dist,
-        cfg.merge_angle_deg,
-        cfg.min_length,
-        max_iters=cfg.max_merge_iters,
-    )
+    with hostsync.stage("lines/merge"):
+        merged, merged_mask = line_ops.merge_break_lines(
+            segs,
+            seg_mask,
+            cfg.merge_dist,
+            cfg.merge_angle_deg,
+            cfg.min_length,
+            max_iters=cfg.max_merge_iters,
+        )
 
     # final fixed-capacity output: keep the longest max_output segments.
     # This bounds every downstream consumer's line axis (the proposal

@@ -212,14 +212,18 @@ def roi_canny_distance_map(
 
     Mirrors box_proposal_detail.cpp:322-327 with absolute-coordinate lookups
     (the reference shifts corners into ROI coordinates; both index the same
-    pixels since the ROI origin is integral).
+    pixels since the ROI origin is integral).  Its host time splits into the
+    `utils.hostsync` stages `proposals/canny` (with the hysteresis flag
+    reads) and `proposals/edt`.
     """
     dev = gray.device
-    x0, y0, x1, y1 = (_as_index(v, dev) for v in (x0, y0, x1, y1))
-    buf = replicate_roi(gray, x0, y0, x1, y1)
-    edges = canny(buf, low=low, high=high)
-    ys = torch.arange(gray.shape[-2], device=dev)[:, None]
-    xs = torch.arange(gray.shape[-1], device=dev)[None, :]
-    b = lambda v: v[..., None, None]
-    inside = (ys >= b(y0)) & (ys <= b(y1)) & (xs >= b(x0)) & (xs <= b(x1))
-    return distance_transform(edges & inside)
+    with hostsync.stage("proposals/canny"):
+        x0, y0, x1, y1 = (_as_index(v, dev) for v in (x0, y0, x1, y1))
+        buf = replicate_roi(gray, x0, y0, x1, y1)
+        edges = canny(buf, low=low, high=high)
+    with hostsync.stage("proposals/edt"):
+        ys = torch.arange(gray.shape[-2], device=dev)[:, None]
+        xs = torch.arange(gray.shape[-1], device=dev)[None, :]
+        b = lambda v: v[..., None, None]
+        inside = (ys >= b(y0)) & (ys <= b(y1)) & (xs >= b(x0)) & (xs <= b(x1))
+        return distance_transform(edges & inside)

@@ -27,6 +27,12 @@ Pipeline per 2D detection:
      semantics via rank arithmetic instead of partial sorts),
   8. 2D->3D lifting of every hypothesis through the ground/wall planes,
   9. skew-penalised final ranking -> best cuboid.
+
+The host's time splits into `utils.hostsync` stages: `proposals/grid` (the
+sample grids and the hypothesis grid, steps 3-4 and what the stages below
+leave), `proposals/merge` (step 1's merge, one flag read a round),
+`proposals/canny` and `proposals/edt` (step 2, in ops.image),
+`proposals/score` (steps 5-6 and 8) and `proposals/rank` (steps 7 and 9).
 """
 
 from __future__ import annotations
@@ -43,6 +49,7 @@ from cube_slam_wu_tpu_torch.core import rotations as rotu
 from cube_slam_wu_tpu_torch.ops import image as image_ops
 from cube_slam_wu_tpu_torch.ops import lines as line_ops
 from cube_slam_wu_tpu_torch.ops.topk import first_argmax, first_argmin, stable_top_k
+from cube_slam_wu_tpu_torch.utils import hostsync
 
 
 # ---------------------------------------------------------------------------
@@ -653,6 +660,7 @@ def _sample_offsets(lo, hi, step, dtype, device="cpu"):
     return torch.tensor(out, dtype=dtype, device=device)
 
 
+@hostsync.stage("proposals/grid")
 def hypothesis_grid(
     gray: torch.Tensor,
     K: torch.Tensor,
@@ -816,13 +824,14 @@ def hypothesis_grid(
         lines_m = lines_b
         mask_m = roi_mask
         merge_overflow = torch.zeros(B, dtype=torch.int32, device=dev)
-    m_lines32, m_mask = line_ops.merge_break_lines(
-        lines_m.to(torch.float32),
-        mask_m,
-        cfg.pre_merge_dist_thre,
-        cfg.pre_merge_angle_thre_deg,
-        cfg.edge_length_threshold,
-    )
+    with hostsync.stage("proposals/merge"):
+        m_lines32, m_mask = line_ops.merge_break_lines(
+            lines_m.to(torch.float32),
+            mask_m,
+            cfg.pre_merge_dist_thre,
+            cfg.pre_merge_angle_thre_deg,
+            cfg.edge_length_threshold,
+        )
     m_lines = m_lines32.to(dtype)
     angles = line_ops.line_angles(m_lines)
     mids = line_ops.line_midpoints(m_lines)
@@ -846,70 +855,71 @@ def hypothesis_grid(
     has = [bcast_ryt(has_g[..., k]) for k in range(3)]
 
     blocks = []
-    for config_id in config_ids:
-        cx, cy, vp1_pos, valid = _corner_chain(
-            vp, c1x, c1y, geom, config_id, cfg.shorted_edge_thre
-        )
-        valid = valid & top_ok_f & sample_valid & rp_valid_f
-        angle = _edge_angle_score(ang_a, ang_b, has, cx, cy, config_id)
-        px, py, pz, lh, wh, hh = _lift_soa(cx, cy, Kinv, Twc_soa, plane)
-        cap = cfg.dist_gather_cap if config_id == 1 else cfg.dist_gather_cap2
-        first_block = not blocks
-        if 0 < cap < Hc:
-            # gather the chamfer samples only for VALID hypotheses (exact
-            # while n_valid <= cap: fusion/ranking mask invalid dists with
-            # +inf; see ProposalConfig.dist_gather_cap).  Sort key: invalid
-            # last, then ascending angle error, so a binding cap sheds the
-            # least-promising hypotheses first.
-            Kc = cap
-            amax = torch.amax(torch.abs(angle), dim=-1, keepdim=True) + 1.0
-            order = torch.sort(
-                torch.where(valid, angle, amax), dim=-1, stable=True
-            ).indices[:, :Kc]
-            # saturation accounting: a binding cap silently invalidates the
-            # overflow, so count it.
-            overflow = torch.clamp(
-                torch.sum(valid, dim=-1).to(torch.int32) - Kc, min=0
+    with hostsync.stage("proposals/score"):
+        for config_id in config_ids:
+            cx, cy, vp1_pos, valid = _corner_chain(
+                vp, c1x, c1y, geom, config_id, cfg.shorted_edge_thre
             )
-            order8 = order[:, None, :].expand(B, 8, Kc)
-            distc = _edge_dist_score(
-                dist_map, torch.gather(cx, 2, order8), torch.gather(cy, 2, order8),
-                config_id, cfg.reweight_edge_distance, bilinear=cfg.bilinear_dist,
+            valid = valid & top_ok_f & sample_valid & rp_valid_f
+            angle = _edge_angle_score(ang_a, ang_b, has, cx, cy, config_id)
+            px, py, pz, lh, wh, hh = _lift_soa(cx, cy, Kinv, Twc_soa, plane)
+            cap = cfg.dist_gather_cap if config_id == 1 else cfg.dist_gather_cap2
+            first_block = not blocks
+            if 0 < cap < Hc:
+                # gather the chamfer samples only for VALID hypotheses (exact
+                # while n_valid <= cap: fusion/ranking mask invalid dists with
+                # +inf; see ProposalConfig.dist_gather_cap).  Sort key: invalid
+                # last, then ascending angle error, so a binding cap sheds the
+                # least-promising hypotheses first.
+                Kc = cap
+                amax = torch.amax(torch.abs(angle), dim=-1, keepdim=True) + 1.0
+                order = torch.sort(
+                    torch.where(valid, angle, amax), dim=-1, stable=True
+                ).indices[:, :Kc]
+                # saturation accounting: a binding cap silently invalidates the
+                # overflow, so count it.
+                overflow = torch.clamp(
+                    torch.sum(valid, dim=-1).to(torch.int32) - Kc, min=0
+                )
+                order8 = order[:, None, :].expand(B, 8, Kc)
+                distc = _edge_dist_score(
+                    dist_map, torch.gather(cx, 2, order8), torch.gather(cy, 2, order8),
+                    config_id, cfg.reweight_edge_distance, bilinear=cfg.bilinear_dist,
+                )
+                dist = torch.zeros((B, Hc), dtype=dist_map.dtype, device=dev)
+                dist.scatter_(1, order, distc)
+                gathered = torch.zeros((B, Hc), dtype=torch.bool, device=dev)
+                gathered.scatter_(1, order, True)
+                valid = valid & gathered
+            else:
+                overflow = torch.zeros(B, dtype=torch.int32, device=dev)
+                dist = _edge_dist_score(
+                    dist_map, cx, cy, config_id, cfg.reweight_edge_distance,
+                    bilinear=cfg.bilinear_dist,
+                )
+            dist = dist / diag
+            if first_block:
+                # merge-cap saturation rides the same observable/fallback
+                # channel as the gather caps (summed in _fuse_and_rank)
+                overflow = overflow + merge_overflow
+            blocks.append(
+                dict(
+                    cx=cx,
+                    cy=cy,
+                    vp1=vp1_pos,
+                    valid=valid,
+                    cap_overflow=overflow[:, None],
+                    dist=dist,
+                    angle=angle,
+                    cfg_id=torch.full((B, Hc), config_id, dtype=torch.int32, device=dev),
+                    pos_x=px,
+                    pos_y=py,
+                    pos_z=pz,
+                    len_h=lh,
+                    wid_h=wh,
+                    hei_h=hh,
+                )
             )
-            dist = torch.zeros((B, Hc), dtype=dist_map.dtype, device=dev)
-            dist.scatter_(1, order, distc)
-            gathered = torch.zeros((B, Hc), dtype=torch.bool, device=dev)
-            gathered.scatter_(1, order, True)
-            valid = valid & gathered
-        else:
-            overflow = torch.zeros(B, dtype=torch.int32, device=dev)
-            dist = _edge_dist_score(
-                dist_map, cx, cy, config_id, cfg.reweight_edge_distance,
-                bilinear=cfg.bilinear_dist,
-            )
-        dist = dist / diag
-        if first_block:
-            # merge-cap saturation rides the same observable/fallback
-            # channel as the gather caps (summed in _fuse_and_rank)
-            overflow = overflow + merge_overflow
-        blocks.append(
-            dict(
-                cx=cx,
-                cy=cy,
-                vp1=vp1_pos,
-                valid=valid,
-                cap_overflow=overflow[:, None],
-                dist=dist,
-                angle=angle,
-                cfg_id=torch.full((B, Hc), config_id, dtype=torch.int32, device=dev),
-                pos_x=px,
-                pos_y=py,
-                pos_z=pz,
-                len_h=lh,
-                wid_h=wh,
-                hei_h=hh,
-            )
-        )
 
     out = {
         key: torch.cat([b[key] for b in blocks], dim=-1) for key in blocks[0]
@@ -921,6 +931,7 @@ def hypothesis_grid(
     return out, aux
 
 
+@hostsync.stage("proposals/rank")
 def _fuse_and_rank(
     hblock,
     aux,
@@ -1133,6 +1144,7 @@ class _Setup(NamedTuple):
     top_ok: torch.Tensor
 
 
+@hostsync.stage("proposals/grid")
 def _proposal_setup(gray, K, T_wc, bboxes, lines, cfg: ProposalConfig) -> _Setup:
     """The sample grids of `detect_cuboids` (box_proposal_detail.cpp:65-237)
     for boxes (B, 4) [x y w h], in gray's dtype and on its device."""

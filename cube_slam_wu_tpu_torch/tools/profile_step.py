@@ -30,12 +30,13 @@ profiler 704 s for 20 offline frames on an H100 machine.
 Every mode with a trace prints one JSON line: wall ms/frame (profiler on),
 device-busy ms/frame (sum of kernel and memcpy time), the idle share of the card, the
 number of device kernels per frame, host and device span (first to last
-kernel) of each labelled stage (`online/`, `kitti/`, `tum/`, `offline/`)
+kernel) of each labelled stage (`online/`, `kitti/`, `tum/`, `offline/`, and
+the detector's `lines/` and `proposals/` inside them)
 and the ten kernels with the most device time, the blocking host reads per
 profiled frame and, under `host_reads_by_stage`, the reads and bytes per
 frame of each stage label (`utils.hostsync.stage`; a count goes to the
 innermost open stage, `other` is outside every stage, so they sum to the
-totals; with the stage's entries and host seconds), and the seconds the
+totals; with the stage's entries, host seconds and self seconds), and the seconds the
 profiler took to sum its events up.  Without a trace the line has the wall
 ms/frame and `host_reads_by_stage`.  Needs a CUDA device.
 """
@@ -61,7 +62,7 @@ KITTI_SETTINGS = dict(pose_feedback=True, window=16, point_weight=0.3, n_points=
                       max_objects=8, max_detections=4)
 TUM_WORLD = dict(size=(480, 640), n_objects=3, seed=0)
 TWO_PHASE_SETTINGS = dict(window=16, point_weight=0.3, n_points=128)
-STAGE_PREFIXES = ("online/", "kitti/", "tum/", "offline/")
+STAGE_PREFIXES = ("online/", "kitti/", "tum/", "offline/", "lines/", "proposals/")
 
 
 class Capture:

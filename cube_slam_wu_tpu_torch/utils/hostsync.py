@@ -6,14 +6,18 @@ the results) stalls the host until the device has caught up.  The port makes
 each such read through this module, so that a run loop can report honestly how
 many there were per frame and how many bytes they moved.
 
-The drivers mark their stages with `stage(label)`: a
-`torch.profiler.record_function(label)` (what `tools/profile_step.py` reads
-from a trace) that also books every read, upload and download made while it
-is open under its label, how many times the stage was entered (`entries`)
-and the host's seconds inside it (`host_s`, inner stages included; on the
-card that is enqueue time plus the blocking reads).  Stages nest; a count
-goes to the innermost open stage only, and outside every stage to `OUTSIDE`,
-so the counts by stage always sum to the totals.
+The drivers and the detector's layers mark their stages with `stage(label)`,
+which books every read, upload and download made while it is open under its
+label, how many times the stage was entered (`entries`), the host's seconds
+inside it (`host_s`, inner stages included; on the card that is enqueue time
+plus the blocking reads) and its self time (`self_s`: `host_s` less the
+seconds its direct inner stages took, so that the self times of a stage and
+of everything nested in it sum to its `host_s`).  Stages nest; a count goes
+to the innermost open stage only, and outside every stage to `OUTSIDE`, so
+the counts by stage always sum to the totals.  While the torch profiler runs,
+a stage is also a `torch.profiler.record_function(label)` range (what
+`tools/profile_step.py` and a device trace read); otherwise it enters none,
+since the range would record nothing and costs most of an empty stage's time.
 
 The counts are safe to make from several threads at once (the pipelined
 front end runs its two stages in two): each thread has its own stack of open
@@ -32,8 +36,11 @@ from torch.profiler import record_function
 COUNTS = {"syncs": 0, "d2h_bytes": 0, "h2d_bytes": 0}
 OUTSIDE = "other"
 BY_STAGE: dict = {}
+_NO_RANGE = contextlib.nullcontext()
 _lock = threading.Lock()
-_local = threading.local()  # .open: this thread's stack of open stage labels
+# .open: this thread's stack of open stages, each [label, seconds of its
+# finished inner stages]
+_local = threading.local()
 
 
 def _open() -> list:
@@ -73,33 +80,40 @@ def delta(before: dict, after: dict, per: float = 1.0) -> dict:
 
 def _book(label: str) -> dict:
     """The counts of `label` (call with `_lock` held)."""
-    return BY_STAGE.setdefault(label, dict(dict.fromkeys(COUNTS, 0), entries=0, host_s=0.0))
+    return BY_STAGE.setdefault(
+        label, dict(dict.fromkeys(COUNTS, 0), entries=0, host_s=0.0, self_s=0.0))
 
 
 def _count(key: str, n: int) -> None:
     stack = _open()
     with _lock:
         COUNTS[key] += n
-        _book(stack[-1] if stack else OUTSIDE)[key] += n
+        _book(stack[-1][0] if stack else OUTSIDE)[key] += n
 
 
 @contextlib.contextmanager
 def stage(label: str):
-    """A labelled stage: a profiler range, and the reads made inside it
-    booked under `label` (see the module docstring)."""
-    with record_function(label):
+    """A labelled stage: the reads made inside it and its host seconds booked
+    under `label`, and a profiler range while the profiler runs (see the
+    module docstring)."""
+    with record_function(label) if torch.autograd._profiler_enabled() else _NO_RANGE:
         with _lock:
             _book(label)["entries"] += 1
         stack = _open()
-        stack.append(label)
+        frame = [label, 0.0]
+        stack.append(frame)
         t0 = time.perf_counter()
         try:
             yield
         finally:
             seconds = time.perf_counter() - t0
-            with _lock:
-                _book(label)["host_s"] += seconds
             stack.pop()
+            if stack:
+                stack[-1][1] += seconds
+            with _lock:
+                book = _book(label)
+                book["host_s"] += seconds
+                book["self_s"] += seconds - frame[1]
 
 
 def host_bool(flag: torch.Tensor) -> bool:

@@ -187,8 +187,8 @@ def test_host_reads_by_stage_sum_to_the_totals():
     for key in ("syncs", "d2h_bytes", "h2d_bytes"):
         assert sum(v[key] for v in d["by_stage"].values()) == d[key] > 0
     assert res.syncs_per_frame == d["syncs"] / 3
-    assert d["by_stage"]["online/detect_lines"]["syncs"] > 0  # the merge loop's flags
-    assert d["by_stage"]["online/proposals"]["syncs"] > 0  # Canny's hysteresis flags
+    assert d["by_stage"]["lines/merge"]["syncs"] > 0  # the merge loop's flags
+    assert d["by_stage"]["proposals/canny"]["syncs"] > 0  # Canny's hysteresis flags
     assert d["by_stage"]["online/cap_check"]["syncs"] == 3  # one per frame
     assert d["by_stage"][hostsync.OUTSIDE]["h2d_bytes"] > 0  # the frames' uploads
     with hostsync.stage("outer"):
