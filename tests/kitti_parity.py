@@ -43,14 +43,16 @@ class Crash(RuntimeError):
     """Raised where a killed run would have stopped."""
 
 
-def port_full_run(drive):
-    """The port's uninterrupted float64 run of the resume tests' settings."""
+def port_run_f64(drive, mode):
+    """The port's uninterrupted `run_kitti_slam` in float64 over the drive in
+    one mode (in the points mode: the resume tests' settings without the
+    checkpoints)."""
     import torch
 
     from cube_slam_wu_tpu_torch.slam import pipeline as tpipe
 
     seq_dir, det_dir, poses, _ = drive
-    kw = {k: v for k, v in RESUME_KW.items() if k != "checkpoint_every"}
+    kw = dict(COMMON, **MODES[mode])
     return tpipe.run_kitti_slam(seq_dir, det_dir, poses, dtype=torch.float64, device="cpu", **kw)
 
 
@@ -63,20 +65,27 @@ def write_drive(root):
     return out, det_dir, poses, seq
 
 
-def check_mode_f64(drive, mode):
-    """Both packages' `run_kitti_slam` in float64 over the drive in one mode:
-    trajectory to 1e-5 m, landmarks and history to 1e-4 m, per-frame chi2 to
-    1e-4 relative, validity and every counter exactly."""
+def jax_run_f64(drive, mode):
+    """The JAX package's `run_kitti_slam` in float64 over the drive in one
+    mode (committed: jax_runs)."""
     import jax.numpy as jnp
-    import torch
 
+    import jax_runs
     from cube_slam_wu_tpu.slam import pipeline as jpipe
-    from cube_slam_wu_tpu_torch.slam import pipeline as tpipe
 
     seq_dir, det_dir, poses, _ = drive
     kw = dict(COMMON, **MODES[mode])
-    j = jpipe.run_kitti_slam(seq_dir, det_dir, poses, dtype=jnp.float64, **kw)
-    p = tpipe.run_kitti_slam(seq_dir, det_dir, poses, dtype=torch.float64, device="cpu", **kw)
+    return jax_runs.run(f"kitti_{mode}_f64",
+                        lambda: jpipe.run_kitti_slam(seq_dir, det_dir, poses, dtype=jnp.float64, **kw))
+
+
+def check_mode_f64(drive, mode, port=None):
+    """Both packages' `run_kitti_slam` in float64 over the drive in one mode:
+    trajectory to 1e-5 m, landmarks and history to 1e-4 m, per-frame chi2 to
+    1e-4 relative, validity and every counter exactly.  `port` is the port's
+    `port_run_f64(drive, mode)` where the caller has made it already."""
+    j = jax_run_f64(drive, mode)
+    p = port_run_f64(drive, mode) if port is None else port
     assert_outputs_agree(j, p, traj_tol=1e-5, chi2_rtol=1e-4)
     assert p.cube_valid.sum() >= 2, "the drive confirms landmarks"
     assert len(p.chi2) == N_FRAMES and np.isfinite(p.traj_Twc_xyzq).all()

@@ -1,6 +1,6 @@
 """Port parity: the step rules of the bundle adjuster (slam/ba.py) beyond
 plain Levenberg-Marquardt — the Huber kernel, Gauss-Newton, Powell's dogleg —
-against the JAX package on the random graph of test_torch_backend.py.  (The
+against the JAX package on the random graph of torch_window_parity.py.  (The
 prior and the marginal covariances are in test_torch_ba_prior.py, the hard
 innovation gate in test_torch_tracker.py.)
 
@@ -12,9 +12,10 @@ float32 system with a different LU each) and 5e-3 relative on the scalars.
 import numpy as np
 import pytest
 
+import jax_runs
 from torch_parity import assert_tree_close, to_np, tree_np
+from torch_window_parity import graph, graphs
 
-from test_torch_backend import GRAPH, _graphs
 from cube_slam_wu_tpu.slam import ba as jba
 from cube_slam_wu_tpu_torch.slam import ba as tba
 
@@ -31,8 +32,8 @@ def assert_results_agree(jr, tr, dt):
 
 @pytest.mark.parametrize("dt", ["f64", "f32"])
 def test_optimize_huber(dt):
-    jg, tg = _graphs(GRAPH, dt)
-    jr = jba.optimize(jg, iterations=5, robust_delta=0.3)
+    jg, tg = graphs(graph(), dt)
+    jr = jax_runs.run(f"ba_huber_{dt}", lambda: jba.optimize(jg, iterations=5, robust_delta=0.3))
     tr = tba.optimize(tg, iterations=5, robust_delta=0.3)
     assert_results_agree(jr, tr, dt)
     plain = tba.optimize(tg, iterations=5)
@@ -41,8 +42,8 @@ def test_optimize_huber(dt):
 
 @pytest.mark.parametrize("dt", ["f64"])
 def test_optimize_gauss_newton(dt):
-    jg, tg = _graphs(GRAPH, dt)
-    jr = jba.optimize(jg, iterations=4, algorithm="gn")
+    jg, tg = graphs(graph(), dt)
+    jr = jax_runs.run(f"ba_gn_{dt}", lambda: jba.optimize(jg, iterations=4, algorithm="gn"))
     tr = tba.optimize(tg, iterations=4, algorithm="gn")
     assert_results_agree(jr, tr, dt)
     assert float(tr.lambda_final) == 0.0
@@ -52,8 +53,9 @@ def test_optimize_gauss_newton(dt):
 def test_optimize_dogleg(dt, iters):
     """`lambda_final` is the final trust radius (it starts at 1e4 and grows or
     shrinks by the gain ratio)."""
-    jg, tg = _graphs(GRAPH, dt)
-    jr = jba.optimize(jg, iterations=iters, algorithm="dogleg")
+    jg, tg = graphs(graph(), dt)
+    jr = jax_runs.run(f"ba_dogleg_{dt}_{iters}",
+                      lambda: jba.optimize(jg, iterations=iters, algorithm="dogleg"))
     tr = tba.optimize(tg, iterations=iters, algorithm="dogleg")
     assert_results_agree(jr, tr, dt)
     assert float(tr.lambda_final) > 0
@@ -64,14 +66,15 @@ def test_dogleg_small_radius_branches_f64():
     first steps leave the Gauss-Newton branch (the radius shrinks below its
     start), and the port still follows the JAX package."""
     rng = np.random.default_rng(7)
-    tree = {k: v for k, v in GRAPH.items()}
-    cam = {k: v.copy() for k, v in GRAPH["cam_Tcw"].items()}
+    tree = {k: v for k, v in graph().items()}
+    cam = {k: v.copy() for k, v in graph()["cam_Tcw"].items()}
     cam["trans"] = cam["trans"] + rng.normal(0, 1.5, cam["trans"].shape)
     tree["cam_Tcw"] = cam
-    jg, tg = _graphs(tree, "f64")
+    jg, tg = graphs(tree, "f64")
     radii = []
     for iters in (2, 6):
-        jr = jba.optimize(jg, iterations=iters, algorithm="dogleg")
+        jr = jax_runs.run(f"ba_dogleg_far_f64_{iters}",
+                          lambda: jba.optimize(jg, iterations=iters, algorithm="dogleg"))
         tr = tba.optimize(tg, iterations=iters, algorithm="dogleg")
         np.testing.assert_allclose(float(jr.lambda_final), float(tr.lambda_final), rtol=1e-6)
         np.testing.assert_allclose(float(jr.chi2), float(tr.chi2), rtol=1e-6)
@@ -80,6 +83,6 @@ def test_dogleg_small_radius_branches_f64():
 
 
 def test_unknown_algorithm_still_value_error():
-    _, tg = _graphs(GRAPH, "f64")
+    _, tg = graphs(graph(), "f64")
     with pytest.raises(ValueError, match="unknown algorithm"):
         tba.optimize(tg, algorithm="newton")

@@ -6,17 +6,16 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import DTYPES, jax_tree_to_numpy, to_j, to_np, to_t, tree_np, assert_tree_close
+import jax_runs
+from torch_parity import to_j, to_np, to_t, tree_np, assert_tree_close
+from torch_window_parity import graph, graphs
 
 import jax.numpy as jnp
 
-from cube_slam_wu_tpu.core.cuboid import Cuboid as JCuboid
-from cube_slam_wu_tpu.core.se3 import SE3 as JSE3
 from cube_slam_wu_tpu.ops import association as jassoc
 from cube_slam_wu_tpu.ops.proposal import ProposalResult as JProposalResult
 from cube_slam_wu_tpu.slam import ba as jba
 from cube_slam_wu_tpu.slam import online as jonline
-from cube_slam_wu_tpu.slam.graph import CameraObjectGraph as JGraph
 from cube_slam_wu_tpu.slam.graph import graph_chi2 as jgraph_chi2
 from cube_slam_wu_tpu.slam.graph import graph_residuals as jgraph_residuals
 from cube_slam_wu_tpu_torch.ops import association as tassoc
@@ -24,8 +23,6 @@ from cube_slam_wu_tpu_torch.ops.proposal import ProposalResult as TProposalResul
 from cube_slam_wu_tpu_torch.slam import ba as tba
 from cube_slam_wu_tpu_torch.slam import online as tonline
 from cube_slam_wu_tpu_torch.slam import tracker as ttracker
-from cube_slam_wu_tpu_torch.slam.convert import state_from_numpy
-from cube_slam_wu_tpu_torch.slam.graph import CameraObjectGraph as TGraph
 from cube_slam_wu_tpu_torch.slam.graph import graph_chi2 as tgraph_chi2
 from cube_slam_wu_tpu_torch.slam.graph import graph_residuals as tgraph_residuals
 
@@ -150,106 +147,25 @@ def test_measurements_from_proposals(canon):
         np.testing.assert_allclose(to_np(a), to_np(b), atol=1e-5, rtol=1e-5)
 
 
-def _random_graph_np(rng, F=8, O=2, n_active=6, np_dtype=np.float64):
-    """A filled graph as nested dicts of numpy arrays: a camera driving
-    forward, O cuboids ahead, noisy measurements, a few masked slots."""
-    jd = jnp.float64
-    K = np.array([[535.4, 0, 320.1], [0, 539.2, 247.6], [0, 0, 1.0]])
-    R0 = np.array([[1.0, 0, 0], [0, 0, 1.0], [0, -1.0, 0]])  # camera looks along +y
-    Twc = []
-    for i in range(F):
-        T = np.eye(4)
-        T[:3, :3] = R0
-        T[:3, 3] = [0.05 * i, 0.25 * i, 1.6]
-        Twc.append(T)
-    Twc = JSE3.from_matrix(to_j(np.stack(Twc), jd))
-    noise = JSE3.exp(to_j(rng.normal(0, 0.02, (F, 6)), jd))
-    Tcw_true = Twc.inverse()
-    Tcw_est = noise.compose(Tcw_true)
-    cubes_min = np.stack(
-        [[-1.0 + 2.2 * o, 6.0 + 1.5 * o, 0.5, 0, 0, 0.4 + 0.9 * o, 0.6, 0.4, 0.5] for o in range(O)]
-    )
-    cube_true = JCuboid.from_minimal(to_j(cubes_min, jd))
-    cube_est = JCuboid.from_minimal(to_j(cubes_min + rng.normal(0, 0.05, cubes_min.shape), jd))
-    Twc_b = JSE3(
-        jnp.broadcast_to(Twc.quat[:, None, :], (F, O, 4)),
-        jnp.broadcast_to(Twc.trans[:, None, :], (F, O, 3)),
-    )
-    cube_b = JCuboid(
-        JSE3(
-            jnp.broadcast_to(cube_true.pose.quat[None], (F, O, 4)),
-            jnp.broadcast_to(cube_true.pose.trans[None], (F, O, 3)),
-        ),
-        jnp.broadcast_to(cube_true.scale[None], (F, O, 3)),
-    )
-    meas = cube_b.transform_to(Twc_b)
-    meas = meas.exp_update(to_j(rng.normal(0, 0.03, (F, O, 9)), jd))
-    bbox = cube_b.project_bbox(
-        JSE3(
-            jnp.broadcast_to(Tcw_true.quat[:, None, :], (F, O, 4)),
-            jnp.broadcast_to(Tcw_true.trans[:, None, :], (F, O, 3)),
-        ),
-        to_j(K, jd),
-    ) + to_j(rng.normal(0, 1.0, (F, O, 4)), jd)
-    prev = np.maximum(np.arange(F) - 1, 0)
-    odom = Tcw_true.compose(JSE3(Tcw_true.quat[prev], Tcw_true.trans[prev]).inverse())
-    odom = JSE3.exp(to_j(rng.normal(0, 0.01, (F, 6)), jd)).compose(odom)
-    frame_mask = np.arange(F) < n_active
-    meas_mask = (rng.random((F, O)) < 0.85) & frame_mask[:, None]
-    g = JGraph(
-        cam_Tcw=Tcw_est, cube=cube_est,
-        frame_mask=to_j(frame_mask), cube_valid=to_j(np.ones(O, bool)),
-        odom=odom, odom_mask=to_j(frame_mask & (np.arange(F) > 0)),
-        cube_meas=meas,
-        cube_meas_weight=to_j(rng.uniform(1.0, 2.0, (F, O)), jd),
-        cube_meas_mask=to_j(meas_mask),
-        bbox_meas=bbox, bbox_weight=to_j(np.full((F, O), 0.005), jd),
-        bbox_mask=to_j(meas_mask), K=to_j(K, jd),
-    )
-    return jax_tree_to_numpy(g)
-
-
-def _graphs(tree, dt):
-    jd, td, _ = DTYPES[dt]
-    cast = lambda a: jnp.asarray(a, jd) if np.asarray(a).dtype.kind == "f" else jnp.asarray(a)
-    jg = JGraph(
-        cam_Tcw=JSE3(**{k: cast(v) for k, v in tree["cam_Tcw"].items()}),
-        cube=JCuboid(JSE3(**{k: cast(v) for k, v in tree["cube"]["pose"].items()}), cast(tree["cube"]["scale"])),
-        frame_mask=cast(tree["frame_mask"]), cube_valid=cast(tree["cube_valid"]),
-        odom=JSE3(**{k: cast(v) for k, v in tree["odom"].items()}),
-        odom_mask=cast(tree["odom_mask"]),
-        cube_meas=JCuboid(JSE3(**{k: cast(v) for k, v in tree["cube_meas"]["pose"].items()}), cast(tree["cube_meas"]["scale"])),
-        cube_meas_weight=cast(tree["cube_meas_weight"]), cube_meas_mask=cast(tree["cube_meas_mask"]),
-        bbox_meas=cast(tree["bbox_meas"]), bbox_weight=cast(tree["bbox_weight"]),
-        bbox_mask=cast(tree["bbox_mask"]), K=cast(tree["K"]),
-    )
-    tg = state_from_numpy(tree, "cpu", td)
-    assert isinstance(tg, TGraph)
-    return jg, tg
-
-
-GRAPH = _random_graph_np(np.random.default_rng(0))
-
-
 @pytest.mark.parametrize("dt,tol", [("f64", 1e-10), ("f32", 1e-5)])
 def test_graph_residuals(dt, tol):
-    jg, tg = _graphs(GRAPH, dt)
-    jr = jgraph_residuals(jg, jg.cam_Tcw, jg.cube)
+    jg, tg = graphs(graph(), dt)
+    jr = jax_runs.run(f"backend_residuals_{dt}", lambda: jgraph_residuals(jg, jg.cam_Tcw, jg.cube))
     tr = tgraph_residuals(tg, tg.cam_Tcw, tg.cube)
     for a, b in zip(jr, tr):
         a, b = to_np(a), to_np(b)
         assert np.abs(a).max() > 0
         np.testing.assert_allclose(a, b, atol=tol * (100 if dt == "f32" else 1), rtol=tol)
     np.testing.assert_allclose(
-        float(jgraph_chi2(jg, jg.cam_Tcw, jg.cube)),
+        float(jax_runs.run(f"backend_chi2_{dt}", lambda: jgraph_chi2(jg, jg.cam_Tcw, jg.cube))),
         float(tgraph_chi2(tg, tg.cam_Tcw, tg.cube)), rtol=1e-9 if dt == "f64" else 1e-4,
     )
 
 
 @pytest.mark.parametrize("iters", [1, 2, 3, 4, 5])
 def test_lm_chi2_and_lambda_per_iteration_f64(iters):
-    jg, tg = _graphs(GRAPH, "f64")
-    jr = jba.optimize(jg, iterations=iters)
+    jg, tg = graphs(graph(), "f64")
+    jr = jax_runs.run(f"backend_lm_f64_{iters}", lambda: jba.optimize(jg, iterations=iters))
     tr = tba.optimize(tg, iterations=iters)
     np.testing.assert_allclose(float(jr.chi2), float(tr.chi2), rtol=1e-8)
     np.testing.assert_allclose(float(jr.lambda_final), float(tr.lambda_final), rtol=1e-8)
@@ -260,8 +176,8 @@ def test_lm_chi2_and_lambda_per_iteration_f64(iters):
 
 
 def test_lm_poses_f32():
-    jg, tg = _graphs(GRAPH, "f32")
-    jr = jba.optimize(jg, iterations=5)
+    jg, tg = graphs(graph(), "f32")
+    jr = jax_runs.run("backend_lm_f32_5", lambda: jba.optimize(jg, iterations=5))
     tr = tba.optimize(tg, iterations=5)
     assert_tree_close(tree_np(jr.cam_Tcw), tree_np(tr.cam_Tcw), atol=1e-4)
     assert_tree_close(tree_np(jr.cube), tree_np(tr.cube), atol=1e-4)
@@ -272,7 +188,7 @@ def test_unported_ba_options_raise():
     """Every option of the back end is ported now (parity cases in
     test_torch_ba_options.py and test_torch_window.py): what used to raise
     NotImplementedError runs, and only an unknown algorithm is refused."""
-    _, tg = _graphs(GRAPH, "f64")
+    _, tg = graphs(graph(), "f64")
     for kw in (dict(algorithm="gn"), dict(algorithm="dogleg"), dict(robust_delta=1.0)):
         res = tba.optimize(tg, iterations=1, **kw)
         assert torch.isfinite(res.chi2)

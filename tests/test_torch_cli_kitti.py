@@ -1,6 +1,8 @@
 """Port parity: `cli kitti --device cpu --float64` writes the files the JAX
 package's `cli kitti` writes, with the same numbers, on the short synthetic
-drive of tests/kitti_parity.py.
+drive of tests/kitti_parity.py.  The JAX command writes from the JAX
+driver's committed two-phase run (`kitti_parity.jax_run_f64`,
+`jax_driver_memo`), the port's command runs its driver.
 
 Tolerances: 1e-5 on the written poses, 1e-4 on the cuboids and the ATE; the
 front-end summary line exactly.
@@ -9,8 +11,8 @@ front-end summary line exactly.
 import numpy as np
 import pytest
 
-import torch_parity  # noqa: F401  (one intra-op thread)
-from kitti_parity import write_drive
+from kitti_parity import COMMON, MODES, jax_run_f64, write_drive
+from torch_parity import jax_driver_memo  # one intra-op thread
 
 
 @pytest.fixture(scope="module")
@@ -18,11 +20,13 @@ def drive(tmp_path_factory):
     return write_drive(tmp_path_factory.mktemp("kitti_cli") / "seq")
 
 
-def test_cli_kitti_writes_the_jax_files(drive, tmp_path, capsys):
+def test_cli_kitti_writes_the_jax_files(drive, tmp_path, capsys, monkeypatch):
     from cube_slam_wu_tpu import cli as jcli
     from cube_slam_wu_tpu_torch import cli as tcli
 
     seq_dir, det_dir, poses, _ = drive
+    jax_driver_memo(monkeypatch, "run_kitti_slam", jax_run_f64(drive, "two_phase"),
+                    seq_dir, det_dir, poses, **COMMON, **MODES["two_phase"])
     args = ["kitti", "--seq", str(seq_dir), "--detections", str(det_dir), "--poses", str(poses),
             "--window", "4", "--max-objects", "4", "--max-detections", "3",
             "--bbox-edge-weight", "0.005"]

@@ -11,6 +11,8 @@ CPU: the Pallas kernel in interpret mode and the dense reference
 (`distance_transform(use_pallas=False)`).
 """
 
+import functools
+
 import numpy as np
 import pytest
 import scipy.ndimage as ndi
@@ -33,6 +35,7 @@ def _rendered(size=(120, 160), seed=0):
     return seq.images[0].astype(np.float32), seq
 
 
+@functools.cache
 def _images():
     rng = np.random.default_rng(0)
     out = {"render": _rendered()[0]}
@@ -43,12 +46,9 @@ def _images():
     return out
 
 
-IMAGES = _images()
-
-
-@pytest.mark.parametrize("name", sorted(IMAGES))
+@pytest.mark.parametrize("name", ("blobs", "random_u8", "render"))
 def test_sobel_nms_canny_bit_equal(name):
-    img = IMAGES[name]
+    img = _images()[name]
     jg, tg = to_j(img), to_t(img)
     jgx, jgy = jimg.sobel3(jg)
     tgx, tgy = timg.sobel3(tg)
@@ -79,7 +79,7 @@ def test_rgb_to_gray_and_replicate_roi():
     np.testing.assert_array_equal(
         to_np(jimg.rgb_to_gray(to_j(rgb))), to_np(timg.rgb_to_gray(to_t(rgb)))
     )
-    img = IMAGES["random_u8"]
+    img = _images()["random_u8"]
     a = to_np(jimg.replicate_roi(to_j(img), 5, 7, 30, 25))
     b = to_np(timg.replicate_roi(to_t(img), 5, 7, 30, 25))
     np.testing.assert_array_equal(a, b)
@@ -95,11 +95,12 @@ def test_rgb_to_gray_and_replicate_roi():
     )
 
 
+@functools.cache
 def _edge_maps():
     """Edge masks with edges: ragged shapes, plus a batch."""
     rng = np.random.default_rng(3)
     out = {}
-    for name, img in IMAGES.items():
+    for name, img in _images().items():
         out[name] = to_np(jimg.canny(to_j(img), 30.0, 80.0))
     out["sparse_50x70"] = rng.random((50, 70)) < 0.03
     one = np.zeros((33, 41), bool)
@@ -108,17 +109,14 @@ def _edge_maps():
     return out
 
 
-EDGES = _edge_maps()
-
-
 def _g2(edge):
     g = to_np(jimg._edt_1d_columns(to_j(edge)))
     return (np.minimum(g, np.float32(1e6)) ** 2).astype(np.float32)
 
 
-@pytest.mark.parametrize("name", sorted(EDGES))
+@pytest.mark.parametrize("name", ("blobs", "random_u8", "render", "single_pixel", "sparse_50x70"))
 def test_edt_columns_and_row_min_bit_equal(name):
-    edge = EDGES[name]
+    edge = _edge_maps()[name]
     assert edge.any()
     jcol = to_np(jimg._edt_1d_columns(to_j(edge)))
     tcol = to_np(timg._edt_1d_columns(to_t(edge)))
@@ -141,7 +139,7 @@ def test_edt_columns_and_row_min_bit_equal(name):
 
 
 def test_edt_row_min_batch():
-    shapes = [e for e in EDGES.values() if e.shape == (97, 131)]
+    shapes = [e for e in _edge_maps().values() if e.shape == (97, 131)]
     rng = np.random.default_rng(5)
     batch = np.stack([shapes[0]] + [rng.random((97, 131)) < p for p in (0.01, 0.2)])
     g2 = np.stack([_g2(e) for e in batch])

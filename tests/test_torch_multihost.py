@@ -27,7 +27,9 @@ def launched(tmp_path_factory):
         runs = {n: pool.submit(multihost.launch, num_processes=n, device="cpu",
                                out_dir=str(tmp_path_factory.mktemp(f"mh{n}")), timeout_s=240)
                 for n in (2, 3)}
-        return {n: f.result() for n, f in runs.items()}
+        # launch kills its workers after timeout_s; the wait on its thread
+        # has a bound of its own
+        return {n: f.result(timeout=300) for n, f in runs.items()}
 
 
 @pytest.mark.parametrize("n", [2, 3])

@@ -5,6 +5,7 @@ against the JAX package's; and `utils.hostsync.stage` splitting the host
 reads of a run of the fused step by stage, summing to the totals.
 """
 
+import functools
 import hashlib
 import json
 import pathlib
@@ -29,6 +30,15 @@ TABLES = {
     "signs_exponents": "  -1.5e-3\t+2 3.25E2\n# x\n7\n",
     "empty": "",
 }
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _bounded_build():
+    """The `$CXX` build of the library (3-8 s), wherever a test of this
+    module first needs it, fails after 60 s instead of running on."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(native.subprocess, "run", functools.partial(subprocess.run, timeout=60))
+        yield
 
 
 def _native_dir_state():

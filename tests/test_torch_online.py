@@ -31,6 +31,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax_runs
 from torch_parity import jax_run_online_frames, to_np
 
 import jax.numpy as jnp
@@ -81,7 +82,8 @@ def seq():
 
 @pytest.fixture(scope="module")
 def jax_mem(seq):
-    return jax_run_online_frames(seq, N, O, O, dtype=jnp.float32, return_state_at={3})
+    return jax_runs.run("online_mem", lambda: jax_run_online_frames(
+        seq, N, O, O, dtype=jnp.float32, return_state_at={3}))
 
 
 def _port_mem(seq, n=N, **kw):
@@ -94,6 +96,12 @@ def _port_mem(seq, n=N, **kw):
 @pytest.fixture(scope="module")
 def port_mem(seq):
     return _port_mem(seq)
+
+
+@pytest.fixture(scope="module")
+def port_mem2(seq):
+    """The port's default run over the first two frames."""
+    return _port_mem(seq, n=2)
 
 
 def _assert_runs_agree(traj_j, cubes_j, valid_j, report_j, res, cube_tol_rel=False):
@@ -168,9 +176,9 @@ def test_folder_reader_matches_jax_folder_reader(folder):
     ~2e-3 m apart within four frames); the discrete stages are float32-pinned
     in both either way."""
     n = 4
-    jres = jonline.run_online_slam_fused(
+    jres = jax_runs.run("online_folder_f64", lambda: jonline.run_online_slam_fused(
         str(folder), n_frames=n, dtype=jnp.float64, max_objects=O, max_detections=O
-    )
+    ))
     tres = tonline.run_online_slam_fused(
         str(folder), n_frames=n, dtype=torch.float64, max_objects=O, max_detections=O,
         device="cpu",
@@ -302,11 +310,11 @@ def test_unported_online_options_raise(seq, kw, monkeypatch):
 
 @pytest.mark.parametrize("over", [dict(sample_bbox_height=True), dict(average_top_k=3)],
                          ids=["sample_bbox_height", "average_top_k"])
-def test_online_step_takes_the_proposal_options(seq, over):
+def test_online_step_takes_the_proposal_options(seq, port_mem2, over):
     """Height sampling and top-k averaging change the proposals the step
     measures (their parity: tests/test_torch_proposal_options.py)."""
     a = _port_mem(seq, n=2, proposal_overrides=over)
-    b = _port_mem(seq, n=2)
+    b = port_mem2
     assert np.isfinite(a.traj_Twc_xyzq).all() and a.cube_valid.all()
     assert not np.array_equal(a.cubes_minimal, b.cubes_minimal)
 

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax_runs
 from torch_parity import to_np
 from torch_window_parity import jax_run_online_frames_windowed
 
@@ -38,9 +39,9 @@ def seq8():
 
 @pytest.fixture(scope="module")
 def jax_win(seq8):
-    return jax_run_online_frames_windowed(
+    return jax_runs.run("online_window", lambda: jax_run_online_frames_windowed(
         seq8, NW, O, O, window=WINDOW, capacity=CAPW, dtype=jnp.float32, return_state_at={5}
-    )
+    ))
 
 
 def test_windowed_slice_in_memory_matches_jax(seq8, jax_win):

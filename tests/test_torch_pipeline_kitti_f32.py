@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax_runs
 import torch_parity  # noqa: F401  (one intra-op thread)
 from kitti_parity import COMMON, MODES, write_drive
 
@@ -28,7 +29,8 @@ def test_run_kitti_slam_points_matches_jax_f32(drive):
     """The production dtype on the production mode."""
     seq_dir, det_dir, poses, _ = drive
     kw = dict(COMMON, **MODES["points"])
-    j = jpipe.run_kitti_slam(seq_dir, det_dir, poses, dtype=jnp.float32, **kw)
+    j = jax_runs.run("kitti_points_f32",
+                     lambda: jpipe.run_kitti_slam(seq_dir, det_dir, poses, dtype=jnp.float32, **kw))
     p = tpipe.run_kitti_slam(seq_dir, det_dir, poses, dtype=torch.float32, device="cpu", **kw)
     np.testing.assert_array_equal(j.cube_valid, p.cube_valid)
     assert j.frontend_report._asdict() == p.frontend_report._asdict()

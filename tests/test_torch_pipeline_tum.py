@@ -29,6 +29,7 @@ import jax.numpy as jnp
 from torch_parity import (  # one intra-op thread
     TUM_FILES, assert_same_files, cached_pair, jax_driver_memo, run_cli_both, to_j, to_t,
 )
+import jax_runs
 from kitti_parity import assert_outputs_agree
 from tum_parity import N_FRAMES, write_world
 
@@ -50,9 +51,16 @@ def folder(world):
 def jax_run(folder):
     """The JAX package's default run over the folder, with its front end
     saved as a completed checkpoint (a front-end cache for the back-end
-    variants)."""
+    variants): the run and the checkpoint's bytes are committed."""
     ck = folder.parent / "jax_front.npz"
-    return jpipe.run_online_slam(folder, dtype=jnp.float64, checkpoint_path=ck), ck
+
+    def make():
+        out = jpipe.run_online_slam(folder, dtype=jnp.float64, checkpoint_path=ck)
+        return out, np.frombuffer(ck.read_bytes(), np.uint8)
+
+    out, ck_bytes = jax_runs.run("tum_default_f64", make)
+    ck.write_bytes(ck_bytes.tobytes())
+    return out, ck
 
 
 def test_run_online_slam_matches_jax_f64(folder, jax_run):
@@ -67,7 +75,8 @@ def test_run_online_slam_matches_jax_f64(folder, jax_run):
 def test_window_and_point_weight_match_jax_f64(folder, jax_run, tmp_path):
     """A fixed-lag window of 4 with Harris + ZNCC point tracks (32 corners)
     in the windowed BA."""
-    j, p = cached_pair(folder, jax_run[1], tmp_path, window=4, point_weight=0.3, n_points=32)
+    j, p = cached_pair(folder, jax_run[1], tmp_path, "tum_window_points_f64",
+                       window=4, point_weight=0.3, n_points=32)
     assert_outputs_agree(j, p, traj_tol=1e-5, chi2_rtol=1e-4)
     assert np.abs(p.traj_Twc_xyzq - jax_run[0].traj_Twc_xyzq).max() > 1e-6
 
@@ -75,7 +84,8 @@ def test_window_and_point_weight_match_jax_f64(folder, jax_run, tmp_path):
 def test_yaw_prior_matches_jax_f64(folder):
     """`use_yaw_prior` (one object, one detection): each frame's proposals
     take the track's last yaw as a prior; both front ends in full."""
-    j = jpipe.run_online_slam(folder, dtype=jnp.float64, use_yaw_prior=True)
+    j = jax_runs.run("tum_yaw_prior_f64",
+                     lambda: jpipe.run_online_slam(folder, dtype=jnp.float64, use_yaw_prior=True))
     p = tpipe.run_online_slam(folder, dtype=torch.float64, device="cpu", use_yaw_prior=True)
     assert_outputs_agree(j, p, traj_tol=1e-5, chi2_rtol=1e-4)
     assert p.cube_valid.all()

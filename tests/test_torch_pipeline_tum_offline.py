@@ -35,6 +35,7 @@ from PIL import Image
 
 import jax.numpy as jnp
 
+import jax_runs
 from torch_parity import (  # one intra-op thread
     TUM_FILES, assert_same_files, jax_driver_memo, run_cli_both, to_np,
 )
@@ -82,7 +83,8 @@ def _with_graph(pipe, tracker, folder, **kw):
 @pytest.fixture(scope="module")
 def offline_runs(folder):
     """Both packages' offline replay in float64, each with its graph."""
-    return (_with_graph(jpipe, jtracker, folder, dtype=jnp.float64),
+    return (jax_runs.run("tum_offline_f64",
+                         lambda: _with_graph(jpipe, jtracker, folder, dtype=jnp.float64)),
             _with_graph(tpipe, ttracker, folder, dtype=torch.float64, device="cpu"))
 
 
@@ -115,7 +117,8 @@ def test_point_refinement_matches_jax_f64(world, offline_runs):
     folder, seq = world
     (_, jg), (_, tg) = offline_runs
     K = seq.K
-    jr = jpipe._point_refinement(jg, folder, N_FRAMES, jnp.asarray(K), jnp.float64, max_corners=48)
+    jr = jax_runs.run("tum_point_refinement_f64", lambda: jpipe._point_refinement(
+        jg, folder, N_FRAMES, jnp.asarray(K), jnp.float64, max_corners=48))
     tr = tpipe._point_refinement(tg, folder, N_FRAMES, torch.as_tensor(K), torch.float64,
                                  max_corners=48)
     before = to_np(tg.cam_Twc().to_xyzq())

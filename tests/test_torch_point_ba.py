@@ -1,6 +1,6 @@
 """Port parity: the joint camera-object-point bundle adjuster
 (slam/point_ba.py) against the JAX package, on the random graph of
-test_torch_backend.py with point landmarks seen by its cameras.
+torch_window_parity.py with point landmarks seen by its cameras.
 
 The port writes the per-observation Jacobians out in closed form where the
 JAX package takes `jax.jacfwd` of the single-observation residual; the two
@@ -16,16 +16,19 @@ a run (five solves of a float32 system with a different LU each), 5e-3
 relative on chi2.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
 
+import jax_runs
 from torch_parity import DTYPES, assert_tree_close, to_j, to_np, to_t, tree_np
+from torch_window_parity import graph, graphs, jprior as mk_jprior, prior, tprior as mk_tprior
 
 import jax
 import jax.numpy as jnp
 
-from test_torch_backend import GRAPH, _graphs
 from cube_slam_wu_tpu.core.se3 import SE3 as JSE3
 from cube_slam_wu_tpu.slam import point_ba as jpb
 from cube_slam_wu_tpu_torch.core.se3 import SE3 as TSE3
@@ -34,7 +37,7 @@ from cube_slam_wu_tpu_torch.slam import point_ba as tpb
 P = 24
 
 
-def _points_np(rng, graph=GRAPH, n=P, dropout=0.2, noise_px=0.5):
+def _points_np(rng, graph, n=P, dropout=0.2, noise_px=0.5):
     """World points ahead of the cameras, their noisy projections in every
     active frame (some dropped), and perturbed initial estimates."""
     F = graph["frame_mask"].shape[0]
@@ -50,7 +53,11 @@ def _points_np(rng, graph=GRAPH, n=P, dropout=0.2, noise_px=0.5):
                 obs_weight=np.full((F, n), 0.3), obs_ur=ur)
 
 
-PTS = _points_np(np.random.default_rng(1))
+@functools.cache
+def pts():
+    """The points of the tests, seen by the cameras of `graph()` (committed:
+    jax_runs)."""
+    return jax_runs.run("point_ba_points", lambda: _points_np(np.random.default_rng(1), graph()))
 
 
 def _factors(tree, dt, stereo=False):
@@ -70,16 +77,16 @@ def _factors(tree, dt, stereo=False):
 
 @pytest.mark.parametrize("dt,tol", [("f64", 1e-9), ("f32", 1e-3)])
 def test_project_point_and_stereo(dt, tol):
-    jg, tg = _graphs(GRAPH, dt)
+    jg, tg = graphs(graph(), dt)
     jd, td, _ = DTYPES[dt]
-    X = PTS["points"]
+    X = pts()["points"]
     jp = jax.vmap(lambda T: jpb.project_point(T, to_j(X, jd), jg.K))(jg.cam_Tcw)
     tp = tpb.project_point(tg.cam_Tcw[:, None], to_t(X, td)[None], tg.K)
     np.testing.assert_allclose(to_np(jp), to_np(tp), atol=tol, rtol=tol)
     js = jax.vmap(lambda T: jpb.project_point_stereo(T, to_j(X, jd), jg.K, 40.0))(jg.cam_Tcw)
     ts = tpb.project_point_stereo(tg.cam_Tcw[:, None], to_t(X, td)[None], tg.K, 40.0)
     np.testing.assert_allclose(to_np(js), to_np(ts), atol=tol, rtol=tol)
-    assert to_np(ts).shape == (GRAPH["frame_mask"].shape[0], P, 3)
+    assert to_np(ts).shape == (graph()["frame_mask"].shape[0], P, 3)
 
 
 @pytest.mark.parametrize("stereo", [False, True])
@@ -89,11 +96,11 @@ def test_obs_jacobians_match_jacfwd(dt, tol, stereo):
     `_obs_residual[_stereo]` at zero increments, observation by observation,
     and (float64) against the port's own residual function differentiated by
     `torch.func.jacfwd`."""
-    jg, tg = _graphs(GRAPH, dt)
+    jg, tg = graphs(graph(), dt)
     jd, td, _ = DTYPES[dt]
-    X = PTS["points"]
-    F = GRAPH["frame_mask"].shape[0]
-    uv, ur = PTS["obs_uv"], PTS["obs_ur"]
+    X = pts()["points"]
+    F = graph()["frame_mask"].shape[0]
+    uv, ur = pts()["obs_uv"], pts()["obs_ur"]
     z6, z3 = jnp.zeros(6, jd), jnp.zeros(3, jd)
 
     def jres(T, x, o, r):
@@ -144,11 +151,11 @@ def test_triangulate_points(dt, tol):
     """DLT at the graph's poses from clean projections: same points and
     validity as JAX (float32 builds the 4x4 normal matrix from pixel-scale
     rows, hence the loose tolerance)."""
-    jg, tg = _graphs(GRAPH, dt)
+    jg, tg = graphs(graph(), dt)
     jd, td, _ = DTYPES[dt]
-    X = PTS["points"]
+    X = pts()["points"]
     uv = np.asarray(jax.vmap(lambda T: jax.vmap(lambda x: jpb.project_point(T, x, jg.K))(to_j(X, jd)))(jg.cam_Tcw))
-    mask = PTS["obs_mask"].copy()
+    mask = pts()["obs_mask"].copy()
     mask[:, 0] = False  # no observation
     mask[:, 1] = False
     mask[2, 1] = True  # a single observation
@@ -165,19 +172,17 @@ def check_optimize(dt, opts):
     """Five LM iterations over cameras + cuboids + points (with the point
     Huber kernel, the graph's Huber kernel and the fixed-lag prior; plain
     with stereo rows; float32): chi2, lambda, poses, cuboids and points."""
+    name = "point_ba_lm_" + "_".join([dt] + [f"{k}{v}" for k, v in sorted(opts.items())])
     opts = dict(opts)
     stereo = opts.pop("stereo", False)
     use_prior = opts.pop("prior", False)
-    jg, tg = _graphs(GRAPH, dt)
-    jf, tf = _factors(PTS, dt, stereo=stereo)
+    jg, tg = graphs(graph(), dt)
+    jf, tf = _factors(pts(), dt, stereo=stereo)
     jprior = tprior = None
     if use_prior:
-        from torch_window_parity import jprior as mk_jprior, prior_tree_from_graph, tprior as mk_tprior
-
-        tree = prior_tree_from_graph(GRAPH)
         jd, td, _ = DTYPES[dt]
-        jprior, tprior = mk_jprior(tree, jd), mk_tprior(tree, td)
-    jr = jpb.optimize(jg, jf, jg.K, iterations=5, prior=jprior, **opts)
+        jprior, tprior = mk_jprior(prior(), jd), mk_tprior(prior(), td)
+    jr = jax_runs.run(name, lambda: jpb.optimize(jg, jf, jg.K, iterations=5, prior=jprior, **opts))
     tr = tpb.optimize(tg, tf, tg.K, iterations=5, prior=tprior, **opts)
     f64 = dt == "f64"
     rel = 1e-7 if f64 else 5e-3
@@ -188,7 +193,7 @@ def check_optimize(dt, opts):
     np.testing.assert_allclose(to_np(jr.points), to_np(tr.points), atol=1e-7 if f64 else 2e-2)
     # the run did something: chi2 fell and the points moved
     assert float(tr.chi2) < float(tpb.optimize(tg, tf, tg.K, iterations=0, prior=tprior, **opts).chi2)
-    assert np.abs(to_np(tr.points) - PTS["points"]).max() > 1e-3
+    assert np.abs(to_np(tr.points) - pts()["points"]).max() > 1e-3
 
 
 @pytest.mark.parametrize("dt,opts", [("f64", {"stereo": True})])
@@ -199,14 +204,15 @@ def test_optimize(dt, opts):
 def test_fix_first_false_and_masked_points_f64():
     """Plain least squares with `fix_first=False`: frame 0 moves as in JAX;
     masked points stay put."""
-    jg, tg = _graphs(GRAPH, "f64")
-    tree = dict(PTS)
-    tree["point_mask"] = PTS["point_mask"].copy()
+    jg, tg = graphs(graph(), "f64")
+    tree = dict(pts())
+    tree["point_mask"] = pts()["point_mask"].copy()
     tree["point_mask"][:4] = False
     jf, tf = _factors(tree, "f64")
-    jr = jpb.optimize(jg, jf, jg.K, iterations=3, fix_first=False)
+    jr = jax_runs.run("point_ba_lm_f64_fix_first_false",
+                      lambda: jpb.optimize(jg, jf, jg.K, iterations=3, fix_first=False))
     tr = tpb.optimize(tg, tf, tg.K, iterations=3, fix_first=False)
     np.testing.assert_allclose(float(jr.chi2), float(tr.chi2), rtol=1e-7)
     np.testing.assert_allclose(to_np(jr.points), to_np(tr.points), atol=1e-7)
-    np.testing.assert_array_equal(to_np(tr.points)[:4], PTS["points"][:4])
-    assert np.abs(to_np(tr.cam_Tcw.trans)[0] - GRAPH["cam_Tcw"]["trans"][0]).max() > 1e-6
+    np.testing.assert_array_equal(to_np(tr.points)[:4], pts()["points"][:4])
+    assert np.abs(to_np(tr.cam_Tcw.trans)[0] - graph()["cam_Tcw"]["trans"][0]).max() > 1e-6

@@ -15,6 +15,8 @@ float32 Schur solve per iteration with a different LU and 3x3 inverse), 2e-2
 relative on chi2.  Masks (observation, validity, prior validity) exactly.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -48,7 +50,8 @@ K = np.array([[240.0, 0, 160], [0, 240, 115], [0, 0, 1]])
 BBOX_WEIGHT = 0.005
 
 
-def _scene(seed=3, noise=0.05):
+@functools.cache
+def scene(seed=3, noise=0.05):
     """Forward drive: camera 1.65 m above the ground moving 0.12 m/frame,
     two cuboids, P ground points (slot 0 re-seeded with a new point at
     RESPAWN_FRAME)."""
@@ -101,12 +104,9 @@ def _scene(seed=3, noise=0.05):
                 obs_mask=obs_mask, respawn=respawn, ground=ground)
 
 
-SCENE = _scene()
-
-
 def _frames(dt):
     jd, td, _ = DTYPES[dt]
-    s = SCENE
+    s = scene()
     bw = np.where(s["has"], BBOX_WEIGHT, 0.0)
     jfr = jtracker.FrameInput(
         meas=JCuboid.from_minimal(to_j(s["meas9"], jd)), quality=to_j(s["quality"], jd),
@@ -137,7 +137,7 @@ def check_every_frame(dt):
     jd, td, _ = DTYPES[dt]
     tol = _tols(dt)
     jfr, tfr, jfirst, tfirst = _frames(dt)
-    s = SCENE
+    s = scene()
     jstep = jax.jit(jtracker.make_windowed_point_step(W, to_j(K, jd), iterations=3, point_weight=0.3,
                                                        soft_gate_alpha=1.0))
     tstep = ttracker.make_windowed_point_step(W, to_t(K, td), iterations=3, point_weight=0.3,

@@ -1,6 +1,6 @@
 """Port parity: slam/propagate.py (spanning-tree initial-estimate
 propagation) against the JAX package on the random graph of
-test_torch_backend.py with its estimates wiped.
+torch_window_parity.py with its estimates wiped.
 
 Tolerances: path costs exact; propagated poses and landmarks 1e-9 absolute
 in float64 and 1e-4 in float32 (chains of up to 7 SE3 composes).
@@ -10,9 +10,9 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import DTYPES, assert_tree_close, jax_tree_to_numpy, to_j, to_np, to_t, tree_np
+from torch_parity import assert_tree_close, jax_tree_to_numpy, to_j, to_np, to_t, tree_np
+from torch_window_parity import graph, graphs
 
-from test_torch_backend import GRAPH, _graphs
 from cube_slam_wu_tpu.slam import propagate as jprop
 from cube_slam_wu_tpu_torch.slam import propagate as tprop
 
@@ -43,7 +43,7 @@ def _wiped(tree, break_odom_at=None, drop_meas=()):
 
 
 def _compare(tree, dt, **kw):
-    jg, tg = _graphs(tree, dt)
+    jg, tg = graphs(tree, dt)
     jkw, tkw = dict(kw), dict(kw)
     if "fixed_frames" in kw:
         jkw["fixed_frames"] = to_j(kw["fixed_frames"])
@@ -60,14 +60,14 @@ def _compare(tree, dt, **kw):
 
 @pytest.mark.parametrize("dt", ["f64", "f32"])
 def test_propagate_along_odometry(dt):
-    tr = _compare(_wiped(GRAPH), dt)
+    tr = _compare(_wiped(graph()), dt)
     dist = to_np(tr.frame_dist)
     np.testing.assert_array_equal(dist[:6], np.arange(6))
     assert np.isinf(dist[6:]).all(), "inactive slots stay unreached"
     assert np.isfinite(to_np(tr.cube_dist)).all()
     # the propagated poses are the odometry chain from frame 0: the composed
     # measurement error is a few centimetres
-    truth = GRAPH["cam_Tcw"]["trans"][:6]
+    truth = graph()["cam_Tcw"]["trans"][:6]
     assert np.abs(to_np(tr.graph.cam_Tcw.trans)[:6] - truth).max() < 0.2
     assert to_np(tr.graph.cam_Tcw.trans)[1:6].any()
 
@@ -76,8 +76,8 @@ def test_propagate_along_odometry(dt):
 def test_propagate_bridges_an_odometry_break_through_a_landmark(dt):
     """With the edge 2 -> 3 cut, frames 3.. are reached by hopping over a
     cuboid: frame -> object -> frame, at two landmark costs."""
-    F = GRAPH["frame_mask"].shape[0]
-    tr = _compare(_wiped(GRAPH, break_odom_at=3), dt)
+    F = graph()["frame_mask"].shape[0]
+    tr = _compare(_wiped(graph(), break_odom_at=3), dt)
     dist = to_np(tr.frame_dist)
     cube_cost = F * 1.0 + 1.0
     assert dist[2] == 2.0 and dist[3] >= 2 * cube_cost
@@ -87,17 +87,17 @@ def test_propagate_bridges_an_odometry_break_through_a_landmark(dt):
 def test_propagate_options_f64():
     fixed = np.zeros(8, bool)
     fixed[4] = True
-    tr = _compare(_wiped(GRAPH), "f64", fixed_frames=fixed, odom_cost=2.0, cube_cost=0.5, rounds=3)
+    tr = _compare(_wiped(graph()), "f64", fixed_frames=fixed, odom_cost=2.0, cube_cost=0.5, rounds=3)
     dist = to_np(tr.frame_dist)
     assert dist[4] == 0.0 and dist[3] > 0 and dist[5] > 0
     # too few rounds leave far frames unreached by odometry alone
-    tr1 = _compare(_wiped(GRAPH, drop_meas=[(f, o) for f in range(8) for o in range(2)]),
+    tr1 = _compare(_wiped(graph(), drop_meas=[(f, o) for f in range(8) for o in range(2)]),
                    "f64", rounds=2)
     assert np.isinf(to_np(tr1.frame_dist)[3:]).all() and np.isinf(to_np(tr1.cube_dist)).all()
 
 
 def test_propagate_result_is_a_new_graph():
-    _, tg = _graphs(_wiped(GRAPH), "f64")
+    _, tg = graphs(_wiped(graph()), "f64")
     before = tree_np(tg)
     tprop.propagate_estimates(tg)
     assert_tree_close(before, tree_np(tg), atol=0.0)

@@ -24,6 +24,8 @@ Two places are discrete by construction and are compared accordingly:
   own corners and map.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -62,7 +64,12 @@ def _rendered_scene(seed):
     )
 
 
-SCENES = {"demo": _demo_scene(), "seed3": _rendered_scene(3), "seed5": _rendered_scene(5)}
+@functools.cache
+def _scene(name):
+    """The scenes of the tests: "demo", "seed3" and "seed5"."""
+    if name == "demo":
+        return _demo_scene()
+    return _rendered_scene({"seed3": 3, "seed5": 5}[name])
 
 
 def _run_both(scene, dt, box, **kw):
@@ -163,17 +170,17 @@ def _compare(jres, jint, tres, tint, tol, bilinear, same_winner, diag=None):
 @pytest.mark.parametrize("bilinear", [True, False], ids=["bilinear", "intcast"])
 def test_demo_full_hypothesis_set(dt, rp, bilinear):
     out = _run_both(
-        SCENES["demo"], dt, 0, sample_cam_roll_pitch=rp, bilinear_dist=bilinear, **ONLINE
+        _scene("demo"), dt, 0, sample_cam_roll_pitch=rp, bilinear_dist=bilinear, **ONLINE
     )
     assert out[1]["valid"].sum() > 20
-    w, h = np.floor(SCENES["demo"]["bboxes"][0][2:4])
+    w, h = np.floor(_scene("demo")["bboxes"][0][2:4])
     _compare(*out, TOL[dt], bilinear, same_winner=True, diag=np.sqrt(w * w + h * h))
 
 
 @pytest.mark.parametrize("dt", ["f64", "f32"])
 @pytest.mark.parametrize("name", ["seed3", "seed5"])
 def test_rendered_scenes_online_config(name, dt):
-    scene = SCENES[name]
+    scene = _scene(name)
     n_valid = 0
     for box in range(len(scene["bboxes"])):
         out = _run_both(
@@ -191,14 +198,14 @@ def test_caps_on_off_and_overflow(dt):
     small = dict(dist_gather_cap=300, dist_gather_cap2=100, merge_cap=8)
     off = dict(dist_gather_cap=0, dist_gather_cap2=0, merge_cap=0)
     base = dict(sample_cam_roll_pitch=True, bilinear_dist=True, **ONLINE)
-    o_small = _run_both(SCENES["demo"], dt, 0, **base, **small)
+    o_small = _run_both(_scene("demo"), dt, 0, **base, **small)
     assert int(o_small[0].cap_overflow) > 0
     _compare(*o_small, TOL[dt], True, same_winner=True)
-    o_off = _run_both(SCENES["demo"], dt, 0, **base, **off)
+    o_off = _run_both(_scene("demo"), dt, 0, **base, **off)
     assert int(o_off[0].cap_overflow) == 0 and int(o_off[2].cap_overflow) == 0
     _compare(*o_off, TOL[dt], True, same_winner=True)
     # default caps do not bind here: identical to caps off inside the port
-    o_def = _run_both(SCENES["demo"], dt, 0, **base)
+    o_def = _run_both(_scene("demo"), dt, 0, **base)
     np.testing.assert_array_equal(o_def[3]["valid"], o_off[3]["valid"])
     assert int(o_def[3]["best"]) == int(o_off[3]["best"])
 
@@ -256,7 +263,7 @@ def test_vanishing_points_and_support_angles():
 
 
 def test_detect_cuboids_batch_with_masked_box():
-    scene = SCENES["seed3"]
+    scene = _scene("seed3")
     jd, td, _ = DTYPES["f32"]
     L = scene["lines"].shape[0]
     kw = dict(max_lines=L, sample_cam_roll_pitch=True, bilinear_dist=True, **ONLINE)

@@ -15,13 +15,13 @@ import jax.numpy as jnp
 
 from cube_slam_wu_tpu.slam import tracker as jtracker
 from cube_slam_wu_tpu_torch.slam import tracker as ttracker
-from test_torch_point_step import K, N, O, SCENE, W, _frames
+from test_torch_point_step import K, N, O, W, _frames, scene
 
 
 def check_branch(branch):
     """`run_incremental` in each branch: final graph, chi2 and cube history."""
     jfr, tfr, jfirst, tfirst = _frames("f64")
-    s = SCENE
+    s = scene()
     kw = dict(iterations=3, soft_gate_alpha=1.0)
     if branch != "full":
         kw["window"] = W

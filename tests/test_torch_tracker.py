@@ -9,8 +9,7 @@ from torch_parity import DTYPES, jax_tree_to_numpy, to_j, to_np, to_t, tree_np, 
 
 import jax.numpy as jnp
 
-from test_torch_backend import GRAPH
-from torch_window_parity import empty_graphs, first_poses, frame_inputs
+from torch_window_parity import empty_graphs, first_poses, frame_inputs, graph
 from cube_slam_wu_tpu.core.cuboid import Cuboid as JCuboid
 from cube_slam_wu_tpu.core.se3 import SE3 as JSE3
 from cube_slam_wu_tpu.slam import tracker as jtracker
@@ -35,7 +34,7 @@ def test_incremental_step_over_6_frames(dt, tol):
     `test_first_observation_is_well_posed` and ROADMAP.md queue 3)."""
     jd, td, _ = DTYPES[dt]
     F, O = 8, 2
-    tree = GRAPH
+    tree = graph()
     jstep = jtracker.make_incremental_step(5, None, 1.0, 1.0, None)
     tstep = ttracker.make_incremental_step(5, None, 1.0, 1.0, None)
     cube = tree["cube"]
@@ -88,7 +87,7 @@ def test_first_observation_is_well_posed(dt):
 
     _, td, _ = DTYPES[dt]
     F, O = 4, 2
-    tree = GRAPH
+    tree = graph()
     tstep = ttracker.make_incremental_step(5, None, 1.0, 1.0, None)
     tg = TGraph.empty(F, O, td)._replace(K=to_t(tree["K"], td))
     first = np.linalg.inv(
@@ -127,12 +126,12 @@ def test_gate_threshold_and_robust_delta_in_the_step(dt):
     F, O = 6, 2
     jstep = jtracker.make_incremental_step(5, 0.25, 1.0, 1.0, 0.5)
     tstep = ttracker.make_incremental_step(5, 0.25, 1.0, 1.0, 0.5)
-    jg, tg = empty_graphs(F, O, dt, GRAPH["K"], GRAPH["cube"])
-    jfirst, tfirst = first_poses(GRAPH, dt)
+    jg, tg = empty_graphs(F, O, dt, graph()["K"], graph()["cube"])
+    jfirst, tfirst = first_poses(graph(), dt)
     rng = np.random.default_rng(5)
     for i in range(4):
         q = rng.uniform(0.5, 1.0, O)
-        jframe, tframe = frame_inputs(GRAPH, i, dt, q, np.ones(O, bool))
+        jframe, tframe = frame_inputs(graph(), i, dt, q, np.ones(O, bool))
         jg, (jchi2, _) = jstep(jg, (jnp.asarray(i, jnp.int32), jframe, jfirst))
         tg, (tchi2, _) = tstep(tg, (i, tframe, tfirst))
         np.testing.assert_array_equal(to_np(jg.cube_meas_mask), to_np(tg.cube_meas_mask))

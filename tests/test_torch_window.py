@@ -1,5 +1,5 @@
 """Port parity: the functions of the fixed-lag smoother (slam/window.py)
-against the JAX package, on the random graph of test_torch_backend.py through
+against the JAX package, on the random graph of torch_window_parity.py through
 both packages.  (The step built from them is in test_torch_windowed_step.py.)
 
 Tolerances: float64 1e-8 absolute on residuals and on the prior's blocks;
@@ -13,18 +13,14 @@ import torch
 
 from torch_parity import DTYPES, assert_tree_close, jax_tree_to_numpy, to_j, to_np, to_t, tree_np
 from torch_window_parity import (
-    absorb_args, jcuboid, jprior, prior_tree_from_graph, tcuboid, tprior,
+    absorb_args, graph, graphs, jcuboid, jprior, prior, tcuboid, tprior,
 )
 
 import jax.numpy as jnp
 
-from test_torch_backend import GRAPH, _graphs
 from cube_slam_wu_tpu.slam import window as jwindow
 from cube_slam_wu_tpu_torch.slam import ba as tba
 from cube_slam_wu_tpu_torch.slam import window as twindow
-
-PRIOR = prior_tree_from_graph(GRAPH)
-
 
 def assert_prior_close(jp, tp, dt, rel32=1e-4):
     """Prior blocks: absolute 1e-8 in float64; in float32 relative `rel32` of
@@ -48,14 +44,14 @@ def test_prior_residuals(dt):
     jd, td, nd = DTYPES[dt]
     rng = np.random.default_rng(2)
     cube = jax_tree_to_numpy(
-        jcuboid(GRAPH["cube"], jnp.float64).exp_update(to_j(rng.normal(0, 0.05, (2, 9))))
+        jcuboid(graph()["cube"], jnp.float64).exp_update(to_j(rng.normal(0, 0.05, (2, 9))))
     )
-    jr = jwindow.prior_residuals(jprior(PRIOR, jd), jcuboid(cube, jd))
-    tr = twindow.prior_residuals(tprior(PRIOR, td), tcuboid(cube, td))
+    jr = jwindow.prior_residuals(jprior(prior(), jd), jcuboid(cube, jd))
+    tr = twindow.prior_residuals(tprior(prior(), td), tcuboid(cube, td))
     assert np.abs(to_np(tr)).max() > 1e-3
     np.testing.assert_allclose(to_np(jr), to_np(tr), atol=1e-8 if dt == "f64" else 1e-4)
     # an object the prior does not hold has zero rows
-    tp = tprior(PRIOR, td)._replace(valid=torch.tensor([True, False]))
+    tp = tprior(prior(), td)._replace(valid=torch.tensor([True, False]))
     assert float(twindow.prior_residuals(tp, tcuboid(cube, td))[1].abs().max()) == 0.0
 
 
@@ -63,21 +59,21 @@ def test_prior_residuals(dt):
 def test_absorb_frame_first_and_repeated(dt):
     """First absorption into an empty prior (the landmark estimate becomes
     the linearisation point), then a second frame onto it (the point stays)."""
-    jargs, targs = absorb_args(GRAPH, 0, dt)
+    jargs, targs = absorb_args(graph(), 0, dt)
     jp1 = jwindow.absorb_frame(*jargs)
     tp1 = twindow.absorb_frame(*targs)
     assert to_np(tp1.valid).any()
     assert_prior_close(jp1, tp1, dt)
     # the second absorption sees moved landmark estimates and keeps `lin`
     moved = jax_tree_to_numpy(
-        jcuboid(GRAPH["cube"], jnp.float64).exp_update(jnp.full((2, 9), 0.01))
+        jcuboid(graph()["cube"], jnp.float64).exp_update(jnp.full((2, 9), 0.01))
     )
     p1 = jax_tree_to_numpy(jp1)
-    jargs, targs = absorb_args(GRAPH, 1, dt, prior_tree=p1, cube_tree=moved)
+    jargs, targs = absorb_args(graph(), 1, dt, prior_tree=p1, cube_tree=moved)
     jp2 = jwindow.absorb_frame(*jargs)
     tp2 = twindow.absorb_frame(*targs)
     assert_prior_close(jp2, tp2, dt)
-    both = to_np(tp1.valid) & GRAPH["cube_meas_mask"][1]
+    both = to_np(tp1.valid) & graph()["cube_meas_mask"][1]
     assert both.any()
     np.testing.assert_array_equal(to_np(tp2.lin.scale)[both], to_np(tp1.lin.scale)[both])
     assert float((tp2.H - tp1.H).abs().max()) > 0
@@ -95,15 +91,15 @@ def test_absorb_frame_gated_and_capped(dt):
     definite by itself; the regulariser only matters for objects whose H is
     all zero (L = sqrt(1e-9)*I there, and S is zeroed by `valid`)."""
     jd, td, _ = DTYPES[dt]
-    tree = {k: v for k, v in GRAPH.items()}
-    w = GRAPH["cube_meas_weight"].copy()
+    tree = {k: v for k, v in graph().items()}
+    w = graph()["cube_meas_weight"].copy()
     w[0, 0] = 300.0  # |J| ~ weight: above sqrt(1e4), capped
     tree["cube_meas_weight"] = w
-    meas = {"pose": {k: v.copy() for k, v in GRAPH["cube_meas"]["pose"].items()},
-            "scale": GRAPH["cube_meas"]["scale"].copy()}
+    meas = {"pose": {k: v.copy() for k, v in graph()["cube_meas"]["pose"].items()},
+            "scale": graph()["cube_meas"]["scale"].copy()}
     meas["pose"]["trans"][0, 1] += 5.0  # innovation ~5 m: above the gate of 3
     tree["cube_meas"] = meas
-    mask = GRAPH["cube_meas_mask"].copy()
+    mask = graph()["cube_meas_mask"].copy()
     mask[0] = True
     tree["cube_meas_mask"] = mask
     jargs, targs = absorb_args(tree, 0, dt)
@@ -125,7 +121,7 @@ def test_absorb_frame_gated_and_capped(dt):
 
 @pytest.mark.parametrize("dt", ["f64", "f32"])
 def test_window_slice_and_scatter(dt):
-    jg, tg = _graphs(GRAPH, dt)
+    jg, tg = graphs(graph(), dt)
     start, W = 2, 4
     jw = jwindow.window_slice(jg, start, W)
     tw = twindow.window_slice(tg, start, W)
@@ -150,10 +146,10 @@ def test_window_slice_does_not_alias_the_full_graph():
     """A slice of a tensor is a view: clearing the window's first odometry
     edge, optimising the window and scattering back must leave every tensor
     of the full graph bit-identical."""
-    _, tg = _graphs(GRAPH, "f64")
+    _, tg = graphs(graph(), "f64")
     before = tree_np(tg)  # numpy copies
     win = twindow.window_slice(tg, 2, 4)
-    res = tba.optimize(win, iterations=2, prior=tprior(PRIOR, torch.float64))
+    res = tba.optimize(win, iterations=2, prior=tprior(prior(), torch.float64))
     out = twindow.window_scatter(tg, res.cam_Tcw, 2)
     assert_tree_close(before, tree_np(tg), atol=0.0)
     assert before["odom_mask"][2] and bool(tg.odom_mask[2])

@@ -155,24 +155,25 @@ def jax_run_online_frames(
     )
 
 
-def cached_pair(folder, ck, tmp_path, **kw):
+def cached_pair(folder, ck, tmp_path, name, **kw):
     """Both packages' `run_online_slam` in float64 over the front end saved in
     the completed checkpoint `ck` (either package's; each run on its own
-    copy): the back ends on the same measurements.  Returns (JAX SlamOutput,
-    the port's)."""
+    copy): the back ends on the same measurements.  The JAX package's run is
+    the committed run `name` (jax_runs).  Returns (JAX SlamOutput, the
+    port's)."""
     import shutil
 
+    import jax_runs
     from cube_slam_wu_tpu.slam import pipeline as jpipe
     from cube_slam_wu_tpu_torch.slam import pipeline as tpipe
 
-    out = []
-    for name, run, extra in (("j", jpipe.run_online_slam, dict(dtype=jnp.float64)),
-                             ("p", tpipe.run_online_slam,
-                              dict(dtype=torch.float64, device="cpu"))):
-        copy = tmp_path / f"{name}_{ck.name}"
+    def run(tag, driver, **extra):
+        copy = tmp_path / f"{tag}_{ck.name}"
         shutil.copy(ck, copy)
-        out.append(run(folder, checkpoint_path=copy, **kw, **extra))
-    return tuple(out)
+        return driver(folder, checkpoint_path=copy, **kw, **extra)
+
+    return (jax_runs.run(name, lambda: run("j", jpipe.run_online_slam, dtype=jnp.float64)),
+            run("p", tpipe.run_online_slam, dtype=torch.float64, device="cpu"))
 
 
 def run_cli_both(tmp_path, capsys, argv, port_flags=("--float64", "--device", "cpu")):
@@ -190,12 +191,12 @@ def run_cli_both(tmp_path, capsys, argv, port_flags=("--float64", "--device", "c
     return outs
 
 
-def jax_driver_memo(monkeypatch, name, result, folder):
+def jax_driver_memo(monkeypatch, name, result, *args, **kwargs):
     """Make the JAX package's `slam.pipeline.<name>` return `result`, a run
-    of that driver over `folder` with its defaults in float64 made earlier
-    in the test module, so that the JAX command line writes its files from
-    that run instead of computing it again.  Each call must be that call:
-    the same folder and every argument at its default, apart from the
+    of that driver on `args` and `kwargs` (every other argument at its
+    default) in float64 made earlier, so that the JAX command line writes its
+    files from that run instead of computing it again.  Each call must be
+    that call: the same arguments (paths compared as paths), apart from the
     checkpoint (which does not change the result) and a float64 dtype."""
     import inspect
     import pathlib
@@ -203,16 +204,17 @@ def jax_driver_memo(monkeypatch, name, result, folder):
     from cube_slam_wu_tpu.slam import pipeline as jpipe
 
     sig = inspect.signature(getattr(jpipe, name))
-    want = sig.bind(folder)
+    want = sig.bind(*args, **kwargs)
     want.apply_defaults()
+    path_like = (str, pathlib.PurePath)
 
     def memo(*args, **kwargs):
         got = sig.bind(*args, **kwargs)
         got.apply_defaults()
         for key, value in want.arguments.items():
             have = got.arguments[key]
-            if key == "base_folder":
-                assert pathlib.Path(have) == pathlib.Path(value)
+            if isinstance(value, path_like) and isinstance(have, path_like):
+                assert pathlib.Path(have) == pathlib.Path(value), (key, have, value)
             elif key == "dtype":
                 assert have in (None, jnp.float64) and jax.config.jax_enable_x64
             elif not key.startswith("checkpoint"):

@@ -1,12 +1,17 @@
-"""Helpers of the port's parity tests for the fixed-lag path and the options
-of the bundle adjuster: the same landmark prior and the same frames in both
-packages' types, made from numpy."""
+"""Helpers of the port's parity tests for the back end, the fixed-lag path
+and the options of the bundle adjuster: the random camera-object graph they
+run on, the same landmark prior and the same frames in both packages' types,
+made from numpy.  The graph and its prior are read by the first test of a
+process that asks for them (`graph()`, `prior()`), never at import."""
+
+import functools
 
 import numpy as np
 import torch
 
 import jax.numpy as jnp
 
+import jax_runs
 from torch_parity import DTYPES, jax_tree_to_numpy, to_j, to_t
 
 from cube_slam_wu_tpu.core.cuboid import Cuboid as JCuboid
@@ -20,6 +25,85 @@ from cube_slam_wu_tpu_torch.slam import tracker as ttracker
 from cube_slam_wu_tpu_torch.slam import window as twindow
 from cube_slam_wu_tpu_torch.slam.convert import state_from_numpy
 from cube_slam_wu_tpu_torch.slam.graph import CameraObjectGraph as TGraph
+
+
+def random_graph_np(rng, F=8, O=2, n_active=6, np_dtype=np.float64):
+    """A filled graph as nested dicts of numpy arrays: a camera driving
+    forward, O cuboids ahead, noisy measurements, a few masked slots."""
+    jd = jnp.float64
+    K = np.array([[535.4, 0, 320.1], [0, 539.2, 247.6], [0, 0, 1.0]])
+    R0 = np.array([[1.0, 0, 0], [0, 0, 1.0], [0, -1.0, 0]])  # camera looks along +y
+    Twc = []
+    for i in range(F):
+        T = np.eye(4)
+        T[:3, :3] = R0
+        T[:3, 3] = [0.05 * i, 0.25 * i, 1.6]
+        Twc.append(T)
+    Twc = JSE3.from_matrix(to_j(np.stack(Twc), jd))
+    noise = JSE3.exp(to_j(rng.normal(0, 0.02, (F, 6)), jd))
+    Tcw_true = Twc.inverse()
+    Tcw_est = noise.compose(Tcw_true)
+    cubes_min = np.stack(
+        [[-1.0 + 2.2 * o, 6.0 + 1.5 * o, 0.5, 0, 0, 0.4 + 0.9 * o, 0.6, 0.4, 0.5] for o in range(O)]
+    )
+    cube_true = JCuboid.from_minimal(to_j(cubes_min, jd))
+    cube_est = JCuboid.from_minimal(to_j(cubes_min + rng.normal(0, 0.05, cubes_min.shape), jd))
+    Twc_b = JSE3(
+        jnp.broadcast_to(Twc.quat[:, None, :], (F, O, 4)),
+        jnp.broadcast_to(Twc.trans[:, None, :], (F, O, 3)),
+    )
+    cube_b = JCuboid(
+        JSE3(
+            jnp.broadcast_to(cube_true.pose.quat[None], (F, O, 4)),
+            jnp.broadcast_to(cube_true.pose.trans[None], (F, O, 3)),
+        ),
+        jnp.broadcast_to(cube_true.scale[None], (F, O, 3)),
+    )
+    meas = cube_b.transform_to(Twc_b)
+    meas = meas.exp_update(to_j(rng.normal(0, 0.03, (F, O, 9)), jd))
+    bbox = cube_b.project_bbox(
+        JSE3(
+            jnp.broadcast_to(Tcw_true.quat[:, None, :], (F, O, 4)),
+            jnp.broadcast_to(Tcw_true.trans[:, None, :], (F, O, 3)),
+        ),
+        to_j(K, jd),
+    ) + to_j(rng.normal(0, 1.0, (F, O, 4)), jd)
+    prev = np.maximum(np.arange(F) - 1, 0)
+    odom = Tcw_true.compose(JSE3(Tcw_true.quat[prev], Tcw_true.trans[prev]).inverse())
+    odom = JSE3.exp(to_j(rng.normal(0, 0.01, (F, 6)), jd)).compose(odom)
+    frame_mask = np.arange(F) < n_active
+    meas_mask = (rng.random((F, O)) < 0.85) & frame_mask[:, None]
+    g = JGraph(
+        cam_Tcw=Tcw_est, cube=cube_est,
+        frame_mask=to_j(frame_mask), cube_valid=to_j(np.ones(O, bool)),
+        odom=odom, odom_mask=to_j(frame_mask & (np.arange(F) > 0)),
+        cube_meas=meas,
+        cube_meas_weight=to_j(rng.uniform(1.0, 2.0, (F, O)), jd),
+        cube_meas_mask=to_j(meas_mask),
+        bbox_meas=bbox, bbox_weight=to_j(np.full((F, O), 0.005), jd),
+        bbox_mask=to_j(meas_mask), K=to_j(K, jd),
+    )
+    return jax_tree_to_numpy(g)
+
+
+def graphs(tree, dt):
+    """A graph tree as the graphs of both packages in dtype `dt`: (JAX, port)."""
+    jd, td, _ = DTYPES[dt]
+    cast = lambda a: jnp.asarray(a, jd) if np.asarray(a).dtype.kind == "f" else jnp.asarray(a)
+    jg = JGraph(
+        cam_Tcw=JSE3(**{k: cast(v) for k, v in tree["cam_Tcw"].items()}),
+        cube=JCuboid(JSE3(**{k: cast(v) for k, v in tree["cube"]["pose"].items()}), cast(tree["cube"]["scale"])),
+        frame_mask=cast(tree["frame_mask"]), cube_valid=cast(tree["cube_valid"]),
+        odom=JSE3(**{k: cast(v) for k, v in tree["odom"].items()}),
+        odom_mask=cast(tree["odom_mask"]),
+        cube_meas=JCuboid(JSE3(**{k: cast(v) for k, v in tree["cube_meas"]["pose"].items()}), cast(tree["cube_meas"]["scale"])),
+        cube_meas_weight=cast(tree["cube_meas_weight"]), cube_meas_mask=cast(tree["cube_meas_mask"]),
+        bbox_meas=cast(tree["bbox_meas"]), bbox_weight=cast(tree["bbox_weight"]),
+        bbox_mask=cast(tree["bbox_mask"]), K=cast(tree["K"]),
+    )
+    tg = state_from_numpy(tree, "cpu", td)
+    assert isinstance(tg, TGraph)
+    return jg, tg
 
 
 def jcuboid(tree, jd, idx=None):
@@ -83,6 +167,20 @@ def prior_tree_from_graph(graph_tree, frames=(0, 1)):
         prior = jax_tree_to_numpy(jwindow.absorb_frame(*jargs))
     assert prior["valid"].any()
     return prior
+
+
+@functools.cache
+def graph():
+    """The random graph of the back-end parity tests (seed 0: 8 slots, 6 of
+    them active, 2 landmarks), as a numpy tree (committed: jax_runs).
+    Callers copy before they change a leaf."""
+    return jax_runs.run("graph", lambda: random_graph_np(np.random.default_rng(0)))
+
+
+@functools.cache
+def prior():
+    """The landmark prior of frames 0 and 1 of `graph()` (committed: jax_runs)."""
+    return jax_runs.run("prior", lambda: prior_tree_from_graph(graph()))
 
 
 def empty_graphs(F, O, dt, K, cube_tree=None):
