@@ -112,6 +112,26 @@ class SlamOutput(NamedTuple):
     point_valid: np.ndarray | None = None  # (P,)
 
 
+class FrameResult(NamedTuple):
+    """What the interleaved KITTI loop hands its `on_result` hook after frame
+    i: the values of the frame's one read, and references to device tensors
+    (no copy, no read) of the step's input and of its carry before and after
+    the step.  The step is functional, so the references stay valid."""
+
+    i: int
+    chi2: float  # the step's final chi2
+    cubes_minimal: np.ndarray  # (O, 9) the landmarks [xyz rpy lwh]
+    Tcw: np.ndarray  # (4, 4) frame i's optimized world-to-camera pose
+    Tcw_prev: np.ndarray  # (4, 4) frame i-1's (frame 0's at i = 0)
+    cube_pos: np.ndarray  # (O, 3) landmark positions
+    cube_valid: np.ndarray  # (O,) landmark initialised
+    lm_accepted: int | None  # LM iterations whose step was taken (points mode)
+    ba_points: int | None  # valid points in the window's solve (points mode)
+    step_input: tuple  # the step's input (index, FrameInput, first pose[, points])
+    carry_before: tuple  # the step's carry before frame i
+    carry_after: tuple  # and after it
+
+
 class _HostProposals(NamedTuple):
     """The fields of a frame's ProposalResult the host policy reads."""
 
@@ -970,6 +990,7 @@ def run_kitti_frames(
     line_track_gate: float = 80.0,
     device=None,
     on_frame=None,
+    on_result=None,
 ) -> SlamOutput:
     """Multi-object online SLAM over frames in memory: the JAX package's
     `run_kitti_slam` loop with its frame source as a parameter.
@@ -980,7 +1001,10 @@ def run_kitti_frames(
     `T_wc0` the camera-to-world pose of frame 0 (z-up world, camera
     `T_wc0[2, 3]` above the ground).  `device=None` means the card (raises
     without one); the CPU is used only on `device="cpu"`.  `on_frame(i)`
-    (optional) is called after frame i's step was enqueued.
+    (optional) is called after frame i's step was enqueued.  `on_result`
+    (optional, interleaved loop only) is called with frame i's `FrameResult`
+    right after the frame's one read; when it returns true the run ends after
+    frame i and returns its `SlamOutput` over frames 0..i.
 
     `pose_feedback=True` interleaves front-end and back-end: each frame's
     proposal grid runs at the tracker's constant-velocity PREDICTED pose
@@ -1010,6 +1034,8 @@ def run_kitti_frames(
         spawn_range_m = float(np.sqrt(0.6 * K_np[0, 0] * h_cam))
     if point_weight > 0.0 and not pose_feedback:
         raise ValueError("point_weight > 0 needs the interleaved loop (pose_feedback=True)")
+    if on_result is not None and not pose_feedback:
+        raise ValueError("on_result needs the interleaved loop (pose_feedback=True)")
     if isinstance(line_track_weight, str):  # "auto"
         line_track_weight = 0.5 if (pose_feedback and point_weight == 0.0) else 0.0
     if pose_feedback:
@@ -1037,6 +1063,7 @@ def run_kitti_frames(
             line_track_weight=line_track_weight,
             line_track_gate=line_track_gate,
             on_frame=on_frame,
+            on_result=on_result,
         )
 
     first_Twc = SE3.from_matrix(torch.as_tensor(T0).to(dtype))
@@ -1122,6 +1149,7 @@ def _run_kitti_tracked(
     line_track_weight: float = 0.0,
     line_track_gate: float = 80.0,
     on_frame=None,
+    on_result=None,
 ):
     """Interleaved front-end/back-end loop (see run_kitti_frames): one
     tracker step per frame, with the next frame's proposal grid anchored at
@@ -1138,7 +1166,14 @@ def _run_kitti_tracked(
     (slam.features.IncrementalTracker, slot reuse with respawn flags),
     triangulated/ground-bootstrapped and optimised inside each window
     (tracker.make_windowed_point_step).  Ground hints come from corners below
-    the principal row and outside every detection box."""
+    the principal row and outside every detection box.
+
+    Stages (`utils.hostsync`): `kitti/features`, `kitti/detect_lines`,
+    `kitti/proposals`, `kitti/associate` (stale retirement, the IoU
+    association, the 3D gate, spawning and measuring, the frame's assembly)
+    and `kitti/step`; with points, `kitti/step` also books the frame's
+    `lm_rejected` iterations and `ba_points` (valid points in the solve),
+    read with the step's outputs."""
     from cube_slam_wu_tpu_torch.ops.detect import DetectConfig, detect_line_segments
     from cube_slam_wu_tpu_torch.ops.proposal import ProposalConfig, detect_cuboids
     from cube_slam_wu_tpu_torch.slam.graph import CameraObjectGraph
@@ -1322,51 +1357,66 @@ def _run_kitti_tracked(
             if not det_valid.any():
                 report.no_valid_proposal.append(i)
                 ok = False
-        if ok:
-            book.retire_stale(i, track_max_age)
-            det_of_track, matched, det_is_new = _associate_local(book, boxes_c, det_valid, min_iou)
-            # 3D gate against the landmark estimate (cached from the last
-            # step's read); on veto the measurement is DROPPED only
-            if assoc_gate_m is not None and assoc_gate_m > 0:
-                for o in np.nonzero(matched)[0]:
-                    if not cube_valid_h[o]:
-                        continue
-                    d = int(det_of_track[o])
-                    dist3 = float(np.linalg.norm(np.asarray(res.pos[d], np.float64) - cube_pos_h[o]))
-                    if dist3 > assoc_gate_m:
-                        matched[o] = False
-            report, meas9, quality_i, bbox_i, has_i = _spawn_and_measure(
-                book, report, res, boxes_c, det_of_track, matched, det_is_new, i, T_pred[:3, 3],
-                (roll_p, pitch_p, yaw_p), dtype, spawn_range_m, range_weight_m, ex,
-                line_track_weight,
-            )
+        with hostsync.stage("kitti/associate"):
+            if ok:
+                book.retire_stale(i, track_max_age)
+                det_of_track, matched, det_is_new = _associate_local(book, boxes_c, det_valid, min_iou)
+                # 3D gate against the landmark estimate (cached from the last
+                # step's read); on veto the measurement is DROPPED only
+                if assoc_gate_m is not None and assoc_gate_m > 0:
+                    for o in np.nonzero(matched)[0]:
+                        if not cube_valid_h[o]:
+                            continue
+                        d = int(det_of_track[o])
+                        dist3 = float(np.linalg.norm(np.asarray(res.pos[d], np.float64) - cube_pos_h[o]))
+                        if dist3 > assoc_gate_m:
+                            matched[o] = False
+                report, meas9, quality_i, bbox_i, has_i = _spawn_and_measure(
+                    book, report, res, boxes_c, det_of_track, matched, det_is_new, i, T_pred[:3, 3],
+                    (roll_p, pitch_p, yaw_p), dtype, spawn_range_m, range_weight_m, ex,
+                    line_track_weight,
+                )
 
-        frame = _assemble_frame(meas9, quality_i, has_i, bbox_i, bbox_edge_weight, dev, dtype)
+            frame = _assemble_frame(meas9, quality_i, has_i, bbox_i, bbox_edge_weight, dev, dtype)
+        carry_before = carry
         with hostsync.stage("kitti/step"):
             if use_points:
-                carry, (chi2, cube_min) = step(
-                    carry,
-                    (i, frame, first_Twc,
-                     hostsync.push(pt_obs, dev, dtype), hostsync.push(pt_alive, dev),
-                     hostsync.push(pt_respawn, dev), hostsync.push(pt_ground, dev)),
-                )
+                inp = (i, frame, first_Twc,
+                       hostsync.push(pt_obs, dev, dtype), hostsync.push(pt_alive, dev),
+                       hostsync.push(pt_respawn, dev), hostsync.push(pt_ground, dev))
+                carry, (chi2, cube_min, stats) = step(carry, inp)
+                stats = (stats,)
             else:
-                carry, (chi2, cube_min) = step(carry, (i, frame, first_Twc))
+                inp = (i, frame, first_Twc)
+                carry, (chi2, cube_min) = step(carry, inp)
+                stats = ()
         if on_frame is not None:
             on_frame(i)
         # ONE read per frame: the step's outputs + everything the next
         # frame's host-side prediction and association gate need
         g_next = carry[0] if windowed else carry
-        chi2_h, cube_min_h, T1_h, T2_h, cube_pos_h, cube_valid_h = hostsync.pull(
-            (chi2, cube_min) + _post_step_state(g_next, i)
+        chi2_h, cube_min_h, T1_h, T2_h, cube_pos_h, cube_valid_h, *stats_h = hostsync.pull(
+            (chi2, cube_min) + _post_step_state(g_next, i) + stats
         )
+        accepted = ba_points = None
+        if stats_h:
+            accepted, ba_points = (int(v) for v in stats_h[0])
+            hostsync.add_count("kitti/step", "lm_rejected", iterations - accepted)
+            hostsync.add_count("kitti/step", "ba_points", ba_points)
         Tcw_prev = np.asarray(T1_h, np.float64)
         Tcw_prevprev = np.asarray(T2_h, np.float64)
         chi2s[i] = float(chi2_h)
         cube_hist[i] = cube_min_h
+        if on_result is not None and on_result(FrameResult(
+            i, float(chi2_h), cube_min_h, Tcw_prev, Tcw_prevprev, cube_pos_h, cube_valid_h,
+            accepted, ba_points, inp, carry_before, carry,
+        )):
+            n = i + 1
+            break
 
     if checkpoint_path is not None:
         _save(n)
+    report = report._replace(n_frames=n)
 
     graph = carry[0] if windowed else carry
     final = (graph.cam_Twc().to_xyzq(), graph.cube.to_minimal(), graph.cube_valid)
@@ -1377,11 +1427,11 @@ def _run_kitti_tracked(
     host = hostsync.pull(final)
     traj, cubes, cube_valid = host[:3]
     return SlamOutput(
-        traj_Twc_xyzq=traj,
+        traj_Twc_xyzq=traj[:n],
         cube_minimal=cubes[0],
-        chi2=chi2s,
-        timestamps=timestamps,
-        cube_history=cube_hist,
+        chi2=chi2s[:n],
+        timestamps=timestamps[:n],
+        cube_history=cube_hist[:n],
         cubes_minimal=cubes,
         cube_valid=cube_valid & (book.count >= min_meas),
         frontend_report=report,

@@ -192,6 +192,7 @@ class PointBAResult(NamedTuple):
     points: torch.Tensor
     chi2: torch.Tensor
     lambda_final: torch.Tensor
+    accepted: torch.Tensor  # () int64: the LM iterations whose step was taken
 
 
 def optimize(
@@ -331,6 +332,7 @@ def optimize(
     chi2 = system[5]
     lam = torch.clamp(1e-5 * torch.amax(torch.abs(torch.diagonal(system[0]))), min=1e-12)
     ni = torch.full((), 2.0, dtype=dtype, device=dev)
+    accepted = torch.zeros((), dtype=torch.int64, device=dev)
     for it in range(iterations):
         H_cc, g_c, H_pp, g_p, W, chi2_cur = system if it == 0 else build_system(g, points)
         dx_c, dx_p = solve(H_cc, g_c, H_pp, g_p, W, lam)
@@ -339,6 +341,7 @@ def optimize(
         pred = torch.dot(dx_c, lam * dx_c - g_c) + torch.sum(dx_p * (lam * dx_p - g_p))
         rho = (chi2_cur - chi2_new) / torch.clamp(torch.abs(pred), min=1e-30)
         accept = (rho > 0) & torch.isfinite(chi2_new)
+        accepted = accepted + accept.to(torch.int64)
         scale_up = torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3, min=1.0 / 3.0)
         lam = torch.where(accept, lam * scale_up, lam * ni)
         ni = torch.where(accept, torch.full_like(ni, 2.0), ni * 2.0)
@@ -349,5 +352,6 @@ def optimize(
         points = torch.where(accept, pts_new, points)
         chi2 = torch.where(accept, chi2_new, chi2_cur)
     return PointBAResult(
-        cam_Tcw=g.cam_Tcw, cube=g.cube, points=points, chi2=chi2, lambda_final=lam
+        cam_Tcw=g.cam_Tcw, cube=g.cube, points=points, chi2=chi2, lambda_final=lam,
+        accepted=accepted,
     )

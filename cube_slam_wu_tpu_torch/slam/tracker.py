@@ -27,6 +27,7 @@ from cube_slam_wu_tpu_torch.core.se3 import SE3
 from cube_slam_wu_tpu_torch.slam import ba
 from cube_slam_wu_tpu_torch.slam import window as win_mod
 from cube_slam_wu_tpu_torch.slam.graph import CameraObjectGraph
+from cube_slam_wu_tpu_torch.utils import hostsync
 
 
 class FrameInput(NamedTuple):
@@ -309,7 +310,15 @@ def make_windowed_point_step(
     from a single view; the landmark stays a free 3-DoF variable in the BA.
     Points falling out of the window are not marginalised.  A valid point
     whose in-window observations are ALL rejected by the reprojection gate
-    (>= 3 of them) is demoted to invalid so the slot can re-initialise."""
+    (>= 3 of them) is demoted to invalid so the slot can re-initialise.
+
+    The step's outputs are (chi2, cubes, stats): `stats` (2,) int64 holds the
+    LM iterations whose step was taken and the valid points in the solve,
+    for the caller to read with its pull of the other two.  Its stages
+    (`utils.hostsync`): `step/insert` (frame insertion and the prior's
+    absorption), `step/points` (observation bookkeeping, DLT, the ground
+    bootstrap, the reprojection gate and demotion) and `step/lm`
+    (`point_ba.optimize`)."""
     from cube_slam_wu_tpu_torch.core import rotations as rotu
     from cube_slam_wu_tpu_torch.slam import point_ba
     from cube_slam_wu_tpu_torch.slam.point_ba import PointFactors
@@ -321,94 +330,96 @@ def make_windowed_point_step(
         graph, prior, ps = carry
         i, frame, first_Twc, obs_i, obs_mask_i, respawned, ground_hint = inp
         i = int(i)
-        g = _insert_frame(
-            graph, i, frame, first_Twc,
-            gate_threshold, soft_gate_alpha, soft_gate_power,
-        )
+        with hostsync.stage("step/insert"):
+            g = _insert_frame(
+                graph, i, frame, first_Twc,
+                gate_threshold, soft_gate_alpha, soft_gate_power,
+            )
+
+            # -- absorb the departing frame into the cuboid prior -----------
+            d = max(i - W, 0)
+            mask_d = g.cube_meas_mask[d] if i >= W else torch.zeros_like(g.cube_meas_mask[d])
+            prior_new = win_mod.absorb_frame(
+                prior,
+                g.cam_Tcw[d].inverse(),
+                Cuboid(g.cube_meas.pose[d], g.cube_meas.scale[d]),
+                g.cube_meas_weight[d],
+                mask_d,
+                g.cube,
+            )
         dtype = ps.points.dtype
         dev = ps.points.device
         P = ps.points.shape[0]
 
-        # -- record this frame's point observations; forget respawned slots -
-        omask = _set_row(ps.obs_mask & ~respawned[None, :], i, obs_mask_i & frame.active)
-        ouv = _set_row(ps.obs_uv, i, obs_i)
-        pvalid = ps.point_valid & ~respawned
+        with hostsync.stage("step/points"):
+            # -- record this frame's point observations; forget respawned slots
+            omask = _set_row(ps.obs_mask & ~respawned[None, :], i, obs_mask_i & frame.active)
+            ouv = _set_row(ps.obs_uv, i, obs_i)
+            pvalid = ps.point_valid & ~respawned
 
-        # -- absorb the departing frame into the cuboid prior ---------------
-        d = max(i - W, 0)
-        mask_d = g.cube_meas_mask[d] if i >= W else torch.zeros_like(g.cube_meas_mask[d])
-        prior_new = win_mod.absorb_frame(
-            prior,
-            g.cam_Tcw[d].inverse(),
-            Cuboid(g.cube_meas.pose[d], g.cube_meas.scale[d]),
-            g.cube_meas_weight[d],
-            mask_d,
-            g.cube,
-        )
+            # -- window slices ------------------------------------------------
+            s = min(max(i - W + 1, 0), g.capacity - W)
+            win = win_mod.window_slice(g, s, W)
+            obs_uv_w = ouv[s : s + W]
+            obs_mask_w = omask[s : s + W] & win.frame_mask[:, None]
 
-        # -- window slices ----------------------------------------------------
-        s = min(max(i - W + 1, 0), g.capacity - W)
-        win = win_mod.window_slice(g, s, W)
-        obs_uv_w = ouv[s : s + W]
-        obs_mask_w = omask[s : s + W] & win.frame_mask[:, None]
+            # -- triangulate fresh tracks at the current window poses ---------
+            n_obs = torch.sum(obs_mask_w, dim=0)  # (P,)
+            fresh = (~pvalid) & (n_obs >= min_obs)
+            X_new, tri_ok = point_ba.triangulate_points(win.cam_Tcw, obs_uv_w, obs_mask_w, K)
 
-        # -- triangulate fresh tracks at the current window poses -----------
-        n_obs = torch.sum(obs_mask_w, dim=0)  # (P,)
-        fresh = (~pvalid) & (n_obs >= min_obs)
-        X_new, tri_ok = point_ba.triangulate_points(win.cam_Tcw, obs_uv_w, obs_mask_w, K)
+            def reproj_err(points):
+                proj = point_ba.project_point(win.cam_Tcw[:, None], points[None], K)  # (W, P, 2)
+                return torch.linalg.norm(proj - obs_uv_w, dim=-1)
 
-        def reproj_err(points):
-            proj = point_ba.project_point(win.cam_Tcw[:, None], points[None], K)  # (W, P, 2)
-            return torch.linalg.norm(proj - obs_uv_w, dim=-1)
+            # DLT acceptance: finite solution, all-window reprojection under
+            # the gate, and a sane camera-relative range in the newest frame
+            err_new = torch.where(obs_mask_w, reproj_err(X_new), 0.0)
+            newest_C = win.cam_Tcw[W - 1].inverse().trans
+            rng_new = torch.linalg.norm(X_new - newest_C[None, :], dim=-1)
+            accept = (
+                fresh
+                & tri_ok
+                & torch.all(err_new < reproj_gate_px, dim=0)
+                & (rng_new < max_point_range)
+            )
 
-        # DLT acceptance: finite solution, all-window reprojection under the
-        # gate, and a sane camera-relative range in the newest frame
-        err_new = torch.where(obs_mask_w, reproj_err(X_new), 0.0)
-        newest_C = win.cam_Tcw[W - 1].inverse().trans
-        rng_new = torch.linalg.norm(X_new - newest_C[None, :], dim=-1)
-        accept = (
-            fresh
-            & tri_ok
-            & torch.all(err_new < reproj_gate_px, dim=0)
-            & (rng_new < max_point_range)
-        )
+            # ground-plane bootstrap for hinted slots DLT could not solve:
+            # lift the NEWEST observation's ray onto world z = 0
+            rows_w = torch.arange(W, device=dev)[:, None]
+            last_row = torch.amax(torch.where(obs_mask_w, rows_w, -1), dim=0)  # (P,)
+            row = torch.clamp(last_row, 0, W - 1)
+            Twc_last = win.cam_Tcw[row].inverse()  # (P,) poses
+            uv_last = obs_uv_w[row, torch.arange(P, device=dev)]  # (P, 2)
+            ray_c = torch.cat([uv_last, torch.ones_like(uv_last[:, :1])], dim=-1) @ Kinv.T
+            d_w = rotu.quat_rotate(Twc_last.quat, ray_c)
+            C = Twc_last.trans  # (P, 3) camera centres
+            dz = d_w[..., 2]
+            t_hit = -C[..., 2] / torch.where(torch.abs(dz) > 1e-6, dz, torch.full_like(dz, -1e-6))
+            X_ground = C + t_hit[:, None] * d_w
+            ground_accept = (
+                fresh
+                & ~accept
+                & ground_hint
+                & (last_row >= 0)
+                & (dz < -0.02)  # ray actually descends to the ground
+                & (t_hit > 0.5)
+                & (t_hit < max_point_range)
+                & (C[..., 2] > 0.2)  # camera above the plane
+            )
 
-        # ground-plane bootstrap for hinted slots DLT could not solve:
-        # lift the NEWEST observation's ray onto world z = 0
-        rows_w = torch.arange(W, device=dev)[:, None]
-        last_row = torch.amax(torch.where(obs_mask_w, rows_w, -1), dim=0)  # (P,)
-        row = torch.clamp(last_row, 0, W - 1)
-        Twc_last = win.cam_Tcw[row].inverse()  # (P,) poses
-        uv_last = obs_uv_w[row, torch.arange(P, device=dev)]  # (P, 2)
-        ray_c = torch.cat([uv_last, torch.ones_like(uv_last[:, :1])], dim=-1) @ Kinv.T
-        d_w = rotu.quat_rotate(Twc_last.quat, ray_c)
-        C = Twc_last.trans  # (P, 3) camera centres
-        dz = d_w[..., 2]
-        t_hit = -C[..., 2] / torch.where(torch.abs(dz) > 1e-6, dz, torch.full_like(dz, -1e-6))
-        X_ground = C + t_hit[:, None] * d_w
-        ground_accept = (
-            fresh
-            & ~accept
-            & ground_hint
-            & (last_row >= 0)
-            & (dz < -0.02)  # ray actually descends to the ground
-            & (t_hit > 0.5)
-            & (t_hit < max_point_range)
-            & (C[..., 2] > 0.2)  # camera above the plane
-        )
+            points = torch.where(accept[:, None], X_new, ps.points)
+            points = torch.where(ground_accept[:, None], X_ground, points)
+            pvalid = pvalid | accept | ground_accept
 
-        points = torch.where(accept[:, None], X_new, ps.points)
-        points = torch.where(ground_accept[:, None], X_ground, points)
-        pvalid = pvalid | accept | ground_accept
+            # -- per-observation outlier gate vs current estimates ------------
+            obs_ok = obs_mask_w & pvalid[None, :] & (reproj_err(points) < reproj_gate_px)
 
-        # -- per-observation outlier gate vs current estimates --------------
-        obs_ok = obs_mask_w & pvalid[None, :] & (reproj_err(points) < reproj_gate_px)
-
-        # demote landmarks that every in-window observation rejects
-        n_ok = torch.sum(obs_ok, dim=0)
-        garbage = pvalid & (n_obs >= 3) & (n_ok == 0)
-        pvalid = pvalid & ~garbage
-        obs_ok = obs_ok & pvalid[None, :]
+            # demote landmarks that every in-window observation rejects
+            n_ok = torch.sum(obs_ok, dim=0)
+            garbage = pvalid & (n_obs >= 3) & (n_ok == 0)
+            pvalid = pvalid & ~garbage
+            obs_ok = obs_ok & pvalid[None, :]
 
         factors = PointFactors(
             points=points,
@@ -417,12 +428,13 @@ def make_windowed_point_step(
             obs_mask=obs_ok,
             obs_weight=torch.full((W, P), point_weight, dtype=dtype, device=dev),
         )
-        result = point_ba.optimize(
-            win, factors, K,
-            iterations=iterations, fix_first=True,
-            robust_delta=robust_delta, prior=prior_new,
-            point_huber=point_huber,
-        )
+        with hostsync.stage("step/lm"):
+            result = point_ba.optimize(
+                win, factors, K,
+                iterations=iterations, fix_first=True,
+                robust_delta=robust_delta, prior=prior_new,
+                point_huber=point_huber,
+            )
         g = win_mod.window_scatter(g, result.cam_Tcw, s)
         g = g._replace(cube=result.cube)
 
@@ -431,7 +443,8 @@ def make_windowed_point_step(
         g = ba.tree_where(frame.active, g, graph)
         prior_new = ba.tree_where(frame.active, prior_new, prior)
         ps_new = ba.tree_where(frame.active, ps_new, ps)
-        return (g, prior_new, ps_new), (result.chi2, g.cube.to_minimal())
+        stats = torch.stack([result.accepted, torch.sum(pvalid)])
+        return (g, prior_new, ps_new), (result.chi2, g.cube.to_minimal(), stats)
 
     return step
 
@@ -521,7 +534,7 @@ def run_incremental(
                 carry,
                 (i, frame(i), first_Twc, obs_uv[i], obs_mask[i], no_respawn, ground[i]),
             )
-            outs.append(out)
+            outs.append(out[:2])
         return (carry[0], *stack(outs))
 
     step = make_windowed_step(

@@ -14,7 +14,8 @@ plus the blocking reads) and its self time (`self_s`: `host_s` less the
 seconds its direct inner stages took, so that the self times of a stage and
 of everything nested in it sum to its `host_s`).  Stages nest; a count goes
 to the innermost open stage only, and outside every stage to `OUTSIDE`, so
-the counts by stage always sum to the totals.  While the torch profiler runs,
+the counts by stage always sum to the totals.  `add_count` books a count of
+the program's own (not a read) under a stage by name.  While the torch profiler runs,
 a stage is also a `torch.profiler.record_function(label)` range (what
 `tools/profile_step.py` and a device trace read); otherwise it enters none,
 since the range would record nothing and costs most of an empty stage's time.
@@ -114,6 +115,15 @@ def stage(label: str):
                 book = _book(label)
                 book["host_s"] += seconds
                 book["self_s"] += seconds - frame[1]
+
+
+def add_count(label: str, name: str, n) -> None:
+    """Add `n` to the count `name` of the stage `label`, wherever the caller
+    is: a count the program read with a pull it made anyway (the LM's
+    rejected iterations of a frame, say), booked beside the stage's reads."""
+    with _lock:
+        book = _book(label)
+        book[name] = book.get(name, 0) + n
 
 
 def host_bool(flag: torch.Tensor) -> bool:

@@ -156,7 +156,7 @@ def check_every_frame(dt):
                to_t(s["obs_uv"][i], td), to_t(s["obs_mask"][i]), to_t(s["respawn"][i]),
                to_t(s["ground"][i]))
         jc, (jchi2, jcubes) = jstep(jc, jin)
-        tc, (tchi2, tcubes) = tstep(tc, tin)
+        tc, (tchi2, tcubes, _) = tstep(tc, tin)
         if handed is not None:
             handed, _ = tstep(handed, tin)
         if i == HANDOVER:
