@@ -29,6 +29,34 @@ _CORNERS_BODY = (
 )
 
 
+# Device constants (`rotations.device_constant`), each computed as the literal
+# it replaces was, so its bits are the same.
+
+
+@rot.device_constant
+def _yaw_quat(yaw_angle: float, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """`quat_from_yaw` of the 0-d tensor `yaw_angle` (`Cuboid.rotate`)."""
+    return rot.quat_from_yaw(torch.tensor(yaw_angle, dtype=dtype, device=device))
+
+
+@rot.device_constant
+def _face_table(dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """(4, 4) quaternions of the front-face rotations `_FACE_ANGLES`."""
+    return rot.quat_from_yaw(torch.tensor(_FACE_ANGLES, dtype=dtype, device=device))
+
+
+@rot.device_constant
+def _corners_body(dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """(3, 8) unit-cube corner table `_CORNERS_BODY`."""
+    return torch.tensor(_CORNERS_BODY, dtype=dtype, device=device)
+
+
+def _swap_lw(scale: torch.Tensor) -> torch.Tensor:
+    """Half-extents [l, w, h] -> [w, l, h] (a gather by a Python list
+    would copy its indices to the device first)."""
+    return torch.stack([scale[..., 1], scale[..., 0], scale[..., 2]], dim=-1)
+
+
 class Cuboid(NamedTuple):
     """Cuboid(s): object-to-world pose + half-extents [l, w, h] (..., 3)."""
 
@@ -74,9 +102,7 @@ class Cuboid(NamedTuple):
     def rotate(self, yaw_angle: float) -> "Cuboid":
         """Re-pick the front face by rotating about body z; +-90deg swaps l/w
         (g2o_Object.h:104-114).  `yaw_angle` is a static python float."""
-        q = rot.quat_from_yaw(
-            torch.tensor(yaw_angle, dtype=self.scale.dtype, device=self.scale.device)
-        )
+        q = _yaw_quat(float(yaw_angle), self.scale.dtype, self.scale.device)
         new_pose = SE3(
             rot.quat_normalize(
                 rot.quat_multiply(self.pose.quat, q.expand(self.pose.quat.shape))
@@ -87,7 +113,7 @@ class Cuboid(NamedTuple):
             abs(abs(float(yaw_angle)) - math.pi / 2) < 1e-9
             or abs(float(yaw_angle) - 3 * math.pi / 2) < 1e-9
         )
-        scale = self.scale[..., [1, 0, 2]] if swap else self.scale
+        scale = _swap_lw(self.scale) if swap else self.scale
         return Cuboid(new_pose, scale)
 
     def min_log_error(self, other: "Cuboid") -> torch.Tensor:
@@ -132,11 +158,10 @@ class Cuboid(NamedTuple):
         the value equals `min_log_error(other)` bit for bit; a caller that
         differentiates the error passes a choice made outside the
         differentiated function and so pays for one candidate only."""
-        dtype, dev = self.scale.dtype, self.scale.device
-        table = rot.quat_from_yaw(torch.tensor(_FACE_ANGLES, dtype=dtype, device=dev))
+        table = _face_table(self.scale.dtype, self.scale.device)
         q = rot.quat_normalize(rot.quat_multiply(other.pose.quat, table[choice]))
         swap = (choice == 0) | (choice == 2)
-        scale = torch.where(swap[..., None], other.scale[..., [1, 0, 2]], other.scale)
+        scale = torch.where(swap[..., None], _swap_lw(other.scale), other.scale)
         return self.log_error(Cuboid(SE3(q, other.pose.trans), scale))
 
     # -- frame changes ------------------------------------------------------
@@ -155,9 +180,7 @@ class Cuboid(NamedTuple):
     # -- geometry -----------------------------------------------------------
     def corners_3d(self) -> torch.Tensor:
         """World-frame corners (..., 3, 8) (g2o_Object.h:165-178)."""
-        body = torch.tensor(
-            _CORNERS_BODY, dtype=self.scale.dtype, device=self.scale.device
-        )
+        body = _corners_body(self.scale.dtype, self.scale.device)
         scaled = self.scale[..., :, None] * body  # (..., 3, 8)
         R = self.pose.rotation_matrix()
         return R @ scaled + self.pose.trans[..., :, None]

@@ -9,6 +9,7 @@ order.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -39,8 +40,31 @@ def quat_multiply(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     )
 
 
+def device_constant(build):
+    """Cache `build(*args)` per argument tuple (the last two are a dtype and a
+    device): a constant tensor made once and shared, never written.
+
+    On a card a tensor built from Python numbers is a host-to-device copy,
+    which stalls the stream and which CUDA graph capture refuses, so a
+    constant that a hot loop uses is made once.  It is built outside every
+    `torch.func` transform, since a first call inside `jacfwd` would
+    otherwise cache a wrapper of that transform's level."""
+
+    @functools.cache
+    def cached(*args):
+        with torch._C._DisableFuncTorch():
+            return build(*args)
+
+    return functools.wraps(build)(cached)
+
+
+@device_constant
+def _conjugate_signs(dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    return torch.tensor([1.0, -1.0, -1.0, -1.0], dtype=dtype, device=device)
+
+
 def quat_conjugate(q: torch.Tensor) -> torch.Tensor:
-    return q * torch.tensor([1.0, -1.0, -1.0, -1.0], dtype=q.dtype, device=q.device)
+    return q * _conjugate_signs(q.dtype, q.device)
 
 
 def _cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -312,13 +312,24 @@ def make_windowed_point_step(
     whose in-window observations are ALL rejected by the reprojection gate
     (>= 3 of them) is demoted to invalid so the slot can re-initialise.
 
+    The joint LM is `point_ba.captured_lm`: every frame solves the window at
+    the same shapes, so on a card the LM is captured in a CUDA graph on the
+    first frame of the process's first session and replayed on every later
+    frame, of that session and of later ones; on the CPU it is plain
+    `point_ba.optimize`.  What it returns are clones of the graph's outputs,
+    since they go into the carry and the next replay overwrites the graph's
+    own buffers.
+
     The step's outputs are (chi2, cubes, stats): `stats` (2,) int64 holds the
     LM iterations whose step was taken and the valid points in the solve,
     for the caller to read with its pull of the other two.  Its stages
     (`utils.hostsync`): `step/insert` (frame insertion and the prior's
     absorption), `step/points` (observation bookkeeping, DLT, the ground
-    bootstrap, the reprojection gate and demotion) and `step/lm`
-    (`point_ba.optimize`)."""
+    bootstrap, the reprojection gate and demotion) and `step/lm` (the LM: on
+    a card the copies into the graph's inputs, one replay and the clones of
+    its outputs, while the LM's device time waits at the caller's next
+    read).  It books each LM that replayed as `lm_replays` and each capture
+    as `lm_captures` under `kitti/step` (host counts, no read)."""
     from cube_slam_wu_tpu_torch.core import rotations as rotu
     from cube_slam_wu_tpu_torch.slam import point_ba
     from cube_slam_wu_tpu_torch.slam.point_ba import PointFactors
@@ -428,13 +439,18 @@ def make_windowed_point_step(
             obs_mask=obs_ok,
             obs_weight=torch.full((W, P), point_weight, dtype=dtype, device=dev),
         )
+        lm = point_ba.captured_lm
+        seen = {"lm_captures": lm.captures, "lm_replays": lm.replays}
         with hostsync.stage("step/lm"):
-            result = point_ba.optimize(
+            result = lm(
                 win, factors, K,
                 iterations=iterations, fix_first=True,
                 robust_delta=robust_delta, prior=prior_new,
                 point_huber=point_huber,
             )
+        for name, n in (("lm_captures", lm.captures), ("lm_replays", lm.replays)):
+            if n > seen[name]:
+                hostsync.add_count("kitti/step", name, n - seen[name])
         g = win_mod.window_scatter(g, result.cam_Tcw, s)
         g = g._replace(cube=result.cube)
 

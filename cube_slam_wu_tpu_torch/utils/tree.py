@@ -1,4 +1,4 @@
-"""Selection over nested NamedTuples of tensors."""
+"""Mapping, selection and flattening over nested NamedTuples of tensors."""
 
 from __future__ import annotations
 
@@ -25,3 +25,37 @@ def tree_where(cond: torch.Tensor, a, b):
     if isinstance(a, torch.Tensor):
         return torch.where(cond.reshape(cond.shape + (1,) * (a.ndim - cond.ndim)), a, b)
     return type(a)(*(tree_where(cond, x, y) for x, y in zip(a, b)))
+
+
+def tree_flatten(tree) -> tuple:
+    """(the tensors of nested tuples and NamedTuples in order, the tree's
+    hashable spec): its types, each tensor's shape, dtype and device, and
+    the other leaves (Python numbers, None) by value."""
+    leaves: list = []
+
+    def spec(x):
+        if isinstance(x, torch.Tensor):
+            leaves.append(x)
+            return ("tensor", tuple(x.shape), x.dtype, x.device)
+        if isinstance(x, tuple):
+            return (type(x), tuple(spec(y) for y in x))
+        return ("value", x)
+
+    return leaves, spec(tree)
+
+
+def tree_unflatten(spec, leaves):
+    """The tree of a `tree_flatten` spec with its tensors taken in order from
+    `leaves`."""
+    it = iter(leaves)
+
+    def build(s):
+        if s[0] == "tensor":
+            return next(it)
+        if s[0] == "value":
+            return s[1]
+        kind, parts = s
+        items = [build(p) for p in parts]
+        return kind(*items) if hasattr(kind, "_fields") else kind(items)
+
+    return build(spec)

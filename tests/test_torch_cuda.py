@@ -173,3 +173,81 @@ def test_sharded_ba_world_one_on_nccl():
             assert torch.equal(a, b), name
     finally:
         dist.destroy_process_group()
+
+
+class _CheckedLM:
+    """A fresh `point_ba.CapturedLM` that also runs eager `optimize` on every
+    call's inputs, keeps the largest deviation of the replay from it, and
+    checks that the result of the call before is unchanged (no output of one
+    replay aliases a buffer of the next)."""
+
+    def __init__(self):
+        from cube_slam_wu_tpu_torch.slam import point_ba
+
+        self.point_ba = point_ba
+        self.lm = point_ba.CapturedLM()
+        self.worst = 0.0
+        self.calls = 0
+        self.last = None  # (the result handed back, a copy of it)
+
+    @property
+    def captures(self):
+        return self.lm.captures
+
+    @property
+    def replays(self):
+        return self.lm.replays
+
+    @staticmethod
+    def _leaves(result):
+        return [*result.cam_Tcw, *result.cube.pose, result.cube.scale, result.points,
+                result.chi2, result.lambda_final, result.accepted]
+
+    def __call__(self, *args, **kw):
+        from cube_slam_wu_tpu_torch.utils.tree import tree_map
+
+        got = self.lm(*args, **kw)
+        ref = self.point_ba.optimize(*args, **kw)
+        if self.last is not None:
+            for a, b in zip(*map(self._leaves, self.last)):
+                assert torch.equal(a, b), "a replay overwrote the result of the call before"
+        for a, b in zip(self._leaves(got), self._leaves(ref)):
+            scale = torch.clamp(torch.amax(torch.abs(b.double())), min=1e-30)
+            dev = float(torch.amax(torch.abs(a.double() - b.double())) / scale)
+            self.worst = max(self.worst, dev)
+            assert dev <= 1e-6, (self.calls, dev)
+        self.last = (got, tree_map(torch.clone, got))
+        self.calls += 1
+        return got
+
+
+@pytest.mark.cuda
+def test_point_lm_replay_matches_eager_on_card(monkeypatch):
+    """The fixed-lag point LM replayed from its CUDA graph against eager
+    `point_ba.optimize` on the same inputs, every frame of a 20-frame
+    `run_kitti_frames` session at `kitti_points_w16`'s shapes (window 16,
+    8 objects, 96 points, float32, the prior from frame 16 on, the 2-px
+    Huber): within float32 rounding (rtol 1e-6 of each output's largest
+    magnitude; bit-equal is expected); one capture across two sessions of
+    one process; no result aliased by the next replay."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (graph capture runs on the card only)")
+    from tum_parity import tilt
+
+    from cube_slam_wu_tpu_torch.slam import pipeline, point_ba
+    from cube_slam_wu_tpu_torch.utils import synth
+
+    seq = synth.make_sequence(n_frames=20, n_objects=6, size=(240, 320), speed=0.5,
+                              curve=0.002, noise_px=0.8, dropout=0.05, seed=4,
+                              ground_texture=4.0)
+    T_wc = tilt(seq.T_wc, 0.4, 0.7)
+    frames = list(zip(seq.images, seq.detections))
+    checked = _CheckedLM()
+    monkeypatch.setattr(point_ba, "captured_lm", checked)
+    kw = dict(pose_feedback=True, point_weight=0.3, window=16, n_points=96, max_objects=8,
+              max_detections=4, iterations=5, dtype=torch.float32, device="cuda")
+    first = pipeline.run_kitti_frames(frames, seq.K, T_wc[0], **kw)
+    assert np.all(np.isfinite(first.traj_Twc_xyzq))
+    pipeline.run_kitti_frames(frames, seq.K, T_wc[0], on_result=lambda r: r.i == 2, **kw)
+    print(f"largest deviation of the replay from eager optimize: {checked.worst:.3e}")
+    assert (checked.captures, checked.replays, checked.calls) == (1, 23, 23)
