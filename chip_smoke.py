@@ -60,6 +60,7 @@ sys.path.insert(0, str(REPO / "tests"))  # tests/tum_parity.py: the worlds' writ
 
 from cube_slam_wu_tpu_torch import cli  # noqa: E402
 from cube_slam_wu_tpu_torch.ops import cuda_kernels  # noqa: E402
+from cube_slam_wu_tpu_torch.ops.proposal import driver_overrides  # noqa: E402
 from cube_slam_wu_tpu_torch.slam.online import run_online_frames, sequence_frames  # noqa: E402
 from cube_slam_wu_tpu_torch.slam.pipeline import (  # noqa: E402
     run_kitti_frames, run_offline_slam, run_online_slam,
@@ -1171,7 +1172,7 @@ PAR_BA = dict(capacity=64, n_objects=3, iterations=5)
 # `detect_cuboid_sharded`, its three boxes through the dp batch (frame 0's
 # configuration: no roll/pitch sampling), and every frame's strongest box
 # through the pipeline.  Each is held bit-equal to its single-device path.
-PAR_PROPOSAL = dict(nominal_skew_ratio=2.0, rank_margin=2e-3, bilinear_dist=True)
+PAR_PROPOSAL = driver_overrides()
 PAR_PROCESSES = 3  # gloo ranks on the card machine's CPU
 
 

@@ -143,6 +143,30 @@ def _check_config(cfg: ProposalConfig) -> None:
         raise ValueError("the SLAM drivers take one proposal per box: max_cuboid_num must be 1")
 
 
+# The online front ends' proposal policy.  The SLAM drivers (slam/online.py,
+# slam/pipeline.py) take both; the pipelined front end takes FLOAT32_STABLE
+# and keeps the reference's skew of 1.0, as the JAX package's does.
+DRIVER_SKEW = {"nominal_skew_ratio": 2.0}  # main_obj.cpp:499
+# float32-stable winner selection and smooth chamfer sampling (see
+# ProposalConfig.rank_margin and .bilinear_dist)
+FLOAT32_STABLE = {"rank_margin": 2e-3, "bilinear_dist": True}
+
+
+def driver_overrides(proposal_overrides: dict | None = None) -> dict:
+    """The SLAM drivers' ProposalConfig overrides: `proposal_overrides` over
+    DRIVER_SKEW and FLOAT32_STABLE, checked (`_check_config`)."""
+    over = {**DRIVER_SKEW, **FLOAT32_STABLE, **(proposal_overrides or {})}
+    _check_config(ProposalConfig(**over))
+    return over
+
+
+def caps_off(cfg: ProposalConfig) -> ProposalConfig:
+    """`cfg` with every cap disabled: the exact full chamfer gather and line
+    merge that a driver reruns a frame with when a binding cap shed valid
+    hypotheses (ProposalResult.cap_overflow > 0)."""
+    return dataclasses.replace(cfg, dist_gather_cap=0, dist_gather_cap2=0, merge_cap=0)
+
+
 class ProposalResult(NamedTuple):
     """Best cuboid proposal per 2D detection (fields mirror the reference
     `cuboid` struct, detect_3d_cuboid.h:20-42).  Shapes are given for one

@@ -42,7 +42,9 @@ import numpy as np
 import torch
 
 from cube_slam_wu_tpu_torch.ops.detect import DetectConfig, detect_line_segments
-from cube_slam_wu_tpu_torch.ops.proposal import ProposalConfig, ProposalResult, detect_cuboid_single
+from cube_slam_wu_tpu_torch.ops.proposal import (
+    FLOAT32_STABLE, ProposalConfig, ProposalResult, detect_cuboid_single,
+)
 from cube_slam_wu_tpu_torch.utils import hostsync
 
 N_STAGES = 2  # detect | propose
@@ -51,18 +53,14 @@ _POLL_S = 0.1  # how often a blocked stage looks whether the other one failed
 
 class _Frontend:
     """The per-frame glue of the online front end (detection in float32,
-    proposals in `dtype` with max_lines = the detector's capacity,
-    rank_margin 2e-3 and the bilinear chamfer lookup), on the tensors of
-    one `run`."""
+    proposals in `dtype` with max_lines = the detector's capacity and the
+    drivers' FLOAT32_STABLE settings), on the tensors of one `run`."""
 
     def __init__(self, K_np, T_wc_np, detect_cfg: DetectConfig, proposal_overrides, dtype):
         # detector output capacity: top-K by length (detect_line_segments)
         L = min(detect_cfg.max_output, detect_cfg.n_peaks * detect_cfg.runs_per_peak)
-        over = dict(proposal_overrides or {})
-        over.setdefault("rank_margin", 2e-3)
-        over.setdefault("bilinear_dist", True)
         self.detect_cfg = detect_cfg
-        self.prop_cfg = ProposalConfig(max_lines=L, **over)
+        self.prop_cfg = ProposalConfig(max_lines=L, **{**FLOAT32_STABLE, **(proposal_overrides or {})})
         self.K = np.asarray(K_np)
         self.T_wc = np.asarray(T_wc_np)
         self.dtype = dtype

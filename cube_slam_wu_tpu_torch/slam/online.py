@@ -36,7 +36,6 @@ The state is updated functionally: a step returns new tensors.
 
 from __future__ import annotations
 
-import dataclasses
 import math
 import pathlib
 from typing import NamedTuple
@@ -224,17 +223,14 @@ def make_online_step(
     reference samples roll/pitch only after the first frame)."""
     from cube_slam_wu_tpu_torch.ops.association import associate_detections
     from cube_slam_wu_tpu_torch.ops.detect import DetectConfig, detector_for
-    from cube_slam_wu_tpu_torch.ops.proposal import ProposalConfig, detect_cuboids
-    from cube_slam_wu_tpu_torch.ops.proposal import _check_config as _check_proposal
+    from cube_slam_wu_tpu_torch.ops.proposal import (
+        ProposalConfig, caps_off, detect_cuboids, driver_overrides,
+    )
 
     dev = resolve_device(device)
     detect_cfg = detect_cfg or DetectConfig()
     detect_line_segments = detector_for(detect_cfg)
-    over = dict(proposal_overrides or {})
-    over.setdefault("nominal_skew_ratio", 2.0)  # main_obj.cpp:499
-    over.setdefault("rank_margin", 2e-3)
-    over.setdefault("bilinear_dist", True)
-    _check_proposal(ProposalConfig(**over))
+    over = driver_overrides(proposal_overrides)
     O, D = max_objects, max_detections
 
     T0 = np.asarray(T0_np, np.float64)
@@ -255,11 +251,6 @@ def make_online_step(
     else:
         ba_step = tracker.make_incremental_step(
             iterations, None, soft_gate_alpha, soft_gate_power, robust_delta
-        )
-
-    def caps_off(cfg):
-        return dataclasses.replace(
-            cfg, dist_gather_cap=0, dist_gather_cap2=0, merge_cap=0
         )
 
     true_t = torch.ones((), dtype=torch.bool, device=dev)

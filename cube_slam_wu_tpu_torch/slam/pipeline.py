@@ -1,49 +1,44 @@
-"""The SLAM drivers over dataset folders: the TUM dataset's two-phase online
+"""The SLAM drivers over frame sequences: the TUM dataset's two-phase online
 and offline drivers, and the KITTI driver.
 
-TUM (the reference's object_slam/data layout, fixed TUM fr3 intrinsics):
-`run_online_slam` is the two-phase online pipeline (`run_online_frontend` at
-the first camera pose, then one `tracker.run_incremental` pass, optionally
-with point tracks in the windowed BA and a joint point polish,
-`_point_refinement`); `run_offline_slam` replays the saved cuboids
-(detect_cuboids_saved.txt at the poses of pop_cam_poses_saved.txt,
-main_obj.cpp:682-722).
+One per-frame front end serves every frame loop (`_FrontEnd`, built once per
+run from the driver's arguments): take the frame in, detect its lines (and
+track them by LBD descriptors), propose one cuboid per 2D detection in one
+batch, rerun the frame with the caps off where a cap bound, then associate
+the proposals into fixed object slots by IoU (a host-side tracklet book) and
+turn each into a camera-frame measurement.  Two loops drive it:
 
-KITTI: multi-object online SLAM over a moving camera.
-
-Per frame: line detection -> batched cuboid proposals for every 2D detection
--> IoU tracklet association into fixed object slots (with range and 3D gates)
--> the tracker's BA step.  Three modes, as in the JAX package's
-`run_kitti_slam`:
-
-- the two-phase schedule (`pose_feedback=False`, the reference's): a
-  front-end pass over all frames with the proposals at the first camera pose
-  (`run_online_frontend`), then one `tracker.run_incremental` pass;
-- interleaved (`pose_feedback=True`): each frame's proposal grid runs at the
-  tracker's constant-velocity predicted pose, and the BA step runs right
-  after it (`_run_kitti_tracked`), with frame-to-frame LBD line tracking
-  weighting the measurements (auto: on when there are no points);
-- interleaved with point landmarks (`point_weight > 0`): Harris + ZNCC
-  tracks (slam.features.IncrementalTracker) in the windowed joint
+- the two-phase loop (`_frontend_frames`): every frame's proposals at the
+  fixed first camera pose, optionally with the track's yaw prior and a depth
+  gate, then one `tracker.run_incremental` pass.  `run_online_frontend` and
+  `run_online_slam` run it over the TUM layout (the reference's
+  object_slam/data, fixed TUM fr3 intrinsics; `run_online_slam` optionally
+  adds point tracks to the windowed BA and a joint point polish,
+  `_point_refinement`), and `run_kitti_frames(pose_feedback=False)` over
+  KITTI frames, the reference's schedule;
+- the interleaved loop (`_run_kitti_tracked`, `run_kitti_frames(
+  pose_feedback=True)`): each frame's proposals at the tracker's
+  constant-velocity predicted pose, a 3D association gate against the
+  landmarks, and the BA step right after; with `point_weight > 0`, Harris +
+  ZNCC point tracks (slam.features.IncrementalTracker) in the windowed joint
   camera + cuboid + point BA (tracker.make_windowed_point_step).
 
-`run_kitti_frames` is the driver over frames in memory; `run_kitti_slam`
-reads the KITTI odometry layout (Pillow decodes the images) and calls it.
-The association policy and the tracklet book live on the host, as in the
-JAX package; the device work of a frame comes back in a few counted reads
-(utils.hostsync): one for the feature tracker's result, one for the
-proposals (with the line-track match flags), one for the BA step's outputs
-and the next frame's pose and gate caches, plus the flags the detector and
-the proposal engine read while they run.  The stages carry
-`utils.hostsync.stage` labels (`kitti/...`; `tum/...` and `offline/...` in
-the TUM drivers): profiler ranges for tools/profile_step.py that also split
-the host reads by stage.
+`run_offline_slam` replays the saved cuboids (detect_cuboids_saved.txt at
+the poses of pop_cam_poses_saved.txt, main_obj.cpp:682-722);
+`run_kitti_slam` reads the KITTI odometry layout (Pillow decodes the images)
+and calls `run_kitti_frames`.  As in the JAX package, the association policy
+and the tracklet book live on the host; the device work of a frame comes
+back in a few counted reads (utils.hostsync): the feature tracker's result,
+the proposals with the line-track match flags, the BA step's outputs with the
+next frame's pose and gate caches, and the flags the detector and the
+proposal engine read while they run.  The stages carry `utils.hostsync.stage`
+labels (`kitti/...`, `tum/...`, `offline/...`): profiler ranges for
+tools/profile_step.py that also split the host reads by stage, and what the
+benchmark's per-layer metrics read.
 """
 
 from __future__ import annotations
 
-import dataclasses
-import math
 import pathlib
 from typing import NamedTuple
 
@@ -153,24 +148,6 @@ def _pull_proposals(res, extra=()):
     return _HostProposals(*host[: len(fields)]), host[len(fields):]
 
 
-def _exact_gather_fallback(res, report, recompute):
-    """dist_gather_cap safety net: if the compacted chamfer gather shed valid
-    hypotheses this frame (res.cap_overflow > 0 for any detection), recompute
-    with the caps disabled (the exact full gather), so a binding cap can
-    never silently change a ranking.  `res` is on the host already."""
-    if int(np.sum(np.asarray(res.cap_overflow))) == 0:
-        return res, report
-    report = report._replace(
-        cap_overflow_frames=report.cap_overflow_frames + 1,
-        cap_fallbacks=report.cap_fallbacks + 1,
-    )
-    return recompute(), report
-
-
-def _caps_off(cfg):
-    return dataclasses.replace(cfg, dist_gather_cap=0, dist_gather_cap2=0, merge_cap=0)
-
-
 def _associate_local(book, boxes_c, det_valid, min_iou):
     """The (O x D) IoU association on the host's CPU: microseconds of work
     next to the host-side book, no device round trip."""
@@ -197,8 +174,9 @@ def _se3_inv_mat(T: np.ndarray) -> np.ndarray:
 
 
 def _assemble_frame(meas9, quality, has, bbox, w, device, dtype) -> tracker.FrameInput:
-    """The frame's measurements as a FrameInput on the device (host arrays
-    pushed once each)."""
+    """Measurements as a FrameInput on the device (host arrays pushed once
+    each): one frame's, (O, ...), or a sequence's, (N, O, ...); the 2D box
+    edges weighted `w` on every measured slot."""
     has_t = hostsync.push(np.asarray(has, bool), device)
     quality_t = hostsync.push(np.asarray(quality, np.float64), device, dtype)
     w_t = torch.full_like(quality_t, float(w))
@@ -206,7 +184,7 @@ def _assemble_frame(meas9, quality, has, bbox, w, device, dtype) -> tracker.Fram
         meas=Cuboid.from_minimal(hostsync.push(np.asarray(meas9, np.float64), device, dtype)),
         quality=quality_t,
         has_meas=has_t,
-        active=torch.ones((), dtype=torch.bool, device=device),
+        active=torch.ones(has_t.shape[:-1], dtype=torch.bool, device=device),
         bbox=hostsync.push(np.asarray(bbox, np.float64), device, dtype),
         bbox_weight=torch.where(has_t, w_t, torch.zeros_like(w_t)),
     )
@@ -224,11 +202,11 @@ def _post_step_state(g, i: int):
 
 
 class _TrackletBook:
-    """Host-side tracklet slots shared by both KITTI loops: per-slot last-box
-    / liveness / association bookkeeping.  Association *policy* (IoU
-    matching, depth gates, spawn gates) stays in the drivers.  Slots are
-    never reused once retired — a retired slot's landmark estimate belongs to
-    the old object."""
+    """Host-side tracklet slots of the front end: per-slot last-box /
+    liveness / association bookkeeping.  Association *policy* (IoU
+    matching, spawn gates, the loops' depth and 3D gates) stays in
+    `_FrontEnd` and the loops.  Slots are never reused once retired — a
+    retired slot's landmark estimate belongs to the old object."""
 
     _KEYS = (
         "track_bbox", "track_alive", "track_used", "track_last",
@@ -325,69 +303,13 @@ def _line_track_quality(boxes_c, d, lmask, mids, line_matched):
     return float(line_matched[roi].mean()) if roi.any() else 0.0
 
 
-def _spawn_and_measure(book, report, res, boxes_c, det_of_track, matched, det_is_new, i,
-                       cam_t, rpy, dtype, spawn_range_m, range_weight_m, ex,
-                       line_track_weight, canonicalize_yaw=True):
-    """The association's outcome into frame i's measurements, shared by both
-    loops: spawn a slot for each new detection within `spawn_range_m` of the
-    camera at `cam_t` (a full book drops it), then turn each matched
-    detection into its camera-frame measurement (`_proposal_measurement` at
-    the camera's roll, pitch, yaw `rpy`) with its quality scaled by range and
-    line-track consistency.  Returns (report, meas9 (O, 9), quality (O,),
-    bbox [cx cy w h] (O, 4), has (O,))."""
-    O = len(matched)
-    meas9, quality, bbox, has = np.zeros((O, 9)), np.zeros(O), np.zeros((O, 4)), np.zeros(O, bool)
-    for d in np.nonzero(det_is_new)[0]:
-        if spawn_range_m is not None:
-            rng_d = float(np.linalg.norm(np.asarray(res.pos[d], np.float64) - cam_t))
-            if rng_d > spawn_range_m:
-                report = report._replace(far_spawns=report.far_spawns + 1)
-                continue
-        o = book.spawn()
-        if o is None:
-            report = report._replace(dropped_detections=report.dropped_detections + 1)
-            continue
-        det_of_track[o] = d
-        matched[o] = True
-    for o in np.nonzero(matched)[0]:
-        d = int(det_of_track[o])
-        meas9[o], quality[o], rng_d = _proposal_measurement(
-            res, d, *rpy, cam_t, dtype, canonicalize_yaw=canonicalize_yaw,
-        )
-        book.accept(o, i, boxes_c[d], rng_d, float(res.rotY[d]))
-        if range_weight_m is not None:
-            quality[o] *= min(1.0, (range_weight_m / max(rng_d, 1e-6)) ** 2)
-        if ex:
-            line_matched, mids, lmask_h = ex
-            cons = _line_track_quality(boxes_c, d, lmask_h, mids, line_matched)
-            quality[o] *= (1.0 - line_track_weight) + line_track_weight * cons
-        x0b, y0b, x1b, y1b = boxes_c[d]
-        bbox[o] = [(x0b + x1b) / 2, (y0b + y1b) / 2, x1b - x0b, y1b - y0b]
-        has[o] = True
-    return report, meas9, quality, bbox, has
-
-
-def _proposal_overrides(proposal_overrides):
-    from cube_slam_wu_tpu_torch.ops.proposal import ProposalConfig
-    from cube_slam_wu_tpu_torch.ops.proposal import _check_config
-
-    over = dict(proposal_overrides or {})
-    over.setdefault("nominal_skew_ratio", 2.0)  # main_obj.cpp:499
-    # f32-stable winner selection (ProposalConfig.rank_margin) and smooth
-    # chamfer sampling (ProposalConfig.bilinear_dist), as in the JAX drivers
-    over.setdefault("rank_margin", 2e-3)
-    over.setdefault("bilinear_dist", True)
-    _check_config(ProposalConfig(**over))
-    return over
-
-
 class _LineTracker:
     """Frame-to-frame LBD line tracking on the device: the previous frame's
     float descriptors matched to this frame's (guided by midpoint motion).
     `track` returns the device tensors (matched flags, line midpoints) that
     the caller pulls with the proposals, or None on the first frame."""
 
-    def __init__(self, gate: float, stage_prefix: str = "kitti"):
+    def __init__(self, gate: float, stage_prefix: str):
         self.gate = gate
         self.prev = None
         self.label = f"{stage_prefix}/lbd"
@@ -436,66 +358,193 @@ def _xywh(boxes_c):
     return np.column_stack([b[:, 0] - 1.0, b[:, 1] - 1.0, b[:, 2] - b[:, 0], b[:, 3] - b[:, 1]])
 
 
-def _frontend_frames(
-    frames,
-    n: int,
-    K_np: np.ndarray,
-    T0: np.ndarray,
-    dtype,
-    dev,
-    detect_cfg=None,
-    proposal_overrides: dict | None = None,
-    max_objects: int = 1,
-    max_detections: int | None = None,
-    min_iou: float = 0.3,
-    use_yaw_prior: bool = False,
-    canonicalize_yaw: bool = True,
-    line_track_weight: float = 0.0,
-    line_track_gate: float = 80.0,
-    checkpoint_path=None,
-    checkpoint_every: int = 25,
-    track_max_age: int | None = None,
-    depth_gate_m: float | None = None,
-    spawn_range_m: float | None = None,
-    range_weight_m: float | None = None,
-    stage_prefix: str = "kitti",
-):
-    """The two-phase front-end over a frame sequence (see
-    `run_online_frontend`).  `T0` is the fixed camera-to-world pose (4x4);
-    the stage labels are `<stage_prefix>/detect_lines`, `/proposals` and
-    `/lbd`."""
-    from cube_slam_wu_tpu_torch.ops.detect import DetectConfig, detector_for
-    from cube_slam_wu_tpu_torch.ops.proposal import ProposalConfig, detect_cuboids
+class _FrontEnd:
+    """The per-frame front end of both frame loops, built once per run from
+    the driver's arguments: a frame taken in (`take`), its lines and cuboid
+    proposals (`propose`), then the proposals associated into the host-side
+    tracklet book and measured (`associate`).  It keeps the run's
+    FrontendReport.  Each loop keeps the pose it anchors the proposals at
+    and its own association gate.
 
-    detect_cfg = detect_cfg or DetectConfig()
-    detect_line_segments = detector_for(detect_cfg)
-    over = _proposal_overrides(proposal_overrides)
-    O = max_objects
-    D = max_detections or max(1, max_objects)
+    Stages: `<stage_prefix>/detect_lines`, `/lbd` (the line tracks) and
+    `/proposals` (the caps-off rerun included); the uploads and the
+    proposals' one read sit outside every stage."""
+
+    def __init__(self, n, K_np, dtype, dev, detect, detect_cfg, proposal_overrides, max_objects,
+                 max_detections, min_iou, track_max_age, spawn_range_m, range_weight_m,
+                 line_track_weight, line_track_gate, canonicalize_yaw=True, stage_prefix="kitti"):
+        from cube_slam_wu_tpu_torch.ops.proposal import driver_overrides
+
+        self.dtype, self.dev, self.prefix = dtype, dev, stage_prefix
+        self.detect, self.detect_cfg = detect, detect_cfg
+        self.over = driver_overrides(proposal_overrides)
+        self.K = torch.as_tensor(np.asarray(K_np, np.float64)).to(device=dev, dtype=dtype)
+        self.book = _TrackletBook(max_objects)
+        self.report = FrontendReport(n, [], [], [], [], 0)
+        self.lines_tr = _LineTracker(line_track_gate, stage_prefix) if line_track_weight > 0.0 else None
+        self.O, self.D, self.min_iou, self.track_max_age = max_objects, max_detections, min_iou, track_max_age
+        self.spawn_range_m, self.range_weight_m = spawn_range_m, range_weight_m
+        self.line_track_weight, self.canonicalize_yaw = line_track_weight, canonicalize_yaw
+
+    def _count(self, *counters):
+        self.report = self.report._replace(**{k: getattr(self.report, k) + 1 for k in counters})
+
+    def upload(self, gray_u8):
+        """An image on the device as float32; it ships as uint8, a quarter
+        of the bytes."""
+        return hostsync.push(np.ascontiguousarray(gray_u8, np.uint8), self.dev).to(torch.float32)
+
+    def take(self, i, gray_u8, rows, upload_any_image=False):
+        """Frame i in: (ok, gray32, boxes_c, dmask).  A missing image, a
+        missing detections file or a frame without detections is reported
+        and not ok.  The image is uploaded once the frame is ok, or with
+        `upload_any_image` whenever there is one; `gray32` is None where it
+        was not, `boxes_c` and `dmask` where there are no detection rows."""
+        if gray_u8 is None:
+            self.report.missing_image.append(i)
+            return False, None, None, None
+        gray32 = self.upload(gray_u8) if upload_any_image else None
+        if rows is None:
+            self.report.missing_detections.append(i)
+            return False, gray32, None, None
+        boxes_c, _conf, dmask = uio.detections_from_rows(rows, n_max=self.D)
+        if not dmask.any():
+            self.report.empty_detections.append(i)
+            return False, gray32, boxes_c, dmask
+        return True, self.upload(gray_u8) if gray32 is None else gray32, boxes_c, dmask
+
+    def propose(self, i, gray32, boxes_c, dmask, T_wc, yaw_prior=None):
+        """Frame i's lines (always detected in float32: dtype-pinned line
+        sets), their tracks, and one cuboid proposal per box at the
+        camera-to-world pose `T_wc` (a device tensor, or a host (4, 4) array
+        uploaded with the boxes), read in one pull with the tracks.  A frame
+        on which a cap shed valid hypotheses is proposed again with every cap
+        off, so a binding cap never changes a ranking.  `yaw_prior` (a host
+        float) is the proposals' temporal yaw prior.  Returns (_HostProposals,
+        the line-track arrays or (), the boxes with a valid proposal), or
+        None, reported, when no box has one."""
+        from cube_slam_wu_tpu_torch.ops.proposal import ProposalConfig, caps_off, detect_cuboids
+
+        with hostsync.stage(f"{self.prefix}/detect_lines"):
+            lines32, lmask = self.detect(gray32, self.detect_cfg)
+        extra = ()
+        if self.lines_tr is not None:
+            tracked = self.lines_tr.track(gray32, lines32, lmask)
+            if tracked is not None:
+                extra = (*tracked, lmask)
+        cfg = ProposalConfig(max_lines=int(lines32.shape[0]), sample_cam_roll_pitch=(i != 0), **self.over)
+        if not isinstance(T_wc, torch.Tensor):
+            T_wc = hostsync.push(T_wc, self.dev, self.dtype)
+        args = (gray32.to(self.dtype), self.K, T_wc, hostsync.push(_xywh(boxes_c), self.dev, self.dtype),
+                hostsync.push(dmask, self.dev), lines32.to(self.dtype), lmask)
+        if yaw_prior is not None:
+            yaw_prior = hostsync.push(np.asarray(yaw_prior), self.dev, self.dtype)
+
+        def run(c, extra):
+            with hostsync.stage(f"{self.prefix}/proposals"):
+                r = detect_cuboids(*args, c, yaw_prior=yaw_prior)
+            return _pull_proposals(r, extra)
+
+        res, ex = run(cfg, extra)
+        if int(np.sum(res.cap_overflow)) > 0:
+            self._count("cap_overflow_frames", "cap_fallbacks")
+            res = run(caps_off(cfg), ())[0]
+        det_valid = res.valid & dmask
+        if not det_valid.any():
+            self.report.no_valid_proposal.append(i)
+            return None
+        return res, ex, det_valid
+
+    def associate(self, i, proposed, boxes_c, cam_t, rpy, veto=None):
+        """Frame i's proposals (what `propose` returned) into its
+        measurements: stale tracks retired, the IoU association, a match
+        dropped where `veto(o, pos)` holds for its slot o and the proposal's
+        world position, a slot spawned for each new detection within
+        `spawn_range_m` of the camera at `cam_t` (a full book drops it), and
+        each matched detection's camera-frame measurement at the camera's
+        roll, pitch, yaw `rpy` (`_proposal_measurement`), its quality scaled
+        by range and line-track consistency.  Returns (meas9 (O, 9),
+        quality (O,), has (O,), bbox [cx cy w h] (O, 4))."""
+        res, ex, det_valid = proposed
+        book, O = self.book, self.O
+        book.retire_stale(i, self.track_max_age)
+        det_of_track, matched, det_is_new = _associate_local(book, boxes_c, det_valid, self.min_iou)
+        pos = lambda d: np.asarray(res.pos[d], np.float64)  # noqa: E731
+        if veto is not None:
+            for o in np.nonzero(matched)[0]:
+                if veto(o, pos(int(det_of_track[o]))):
+                    matched[o] = False
+        meas9, quality, has, bbox = np.zeros((O, 9)), np.zeros(O), np.zeros(O, bool), np.zeros((O, 4))
+        for d in np.nonzero(det_is_new)[0]:
+            if self.spawn_range_m is not None and float(np.linalg.norm(pos(d) - cam_t)) > self.spawn_range_m:
+                self._count("far_spawns")
+                continue
+            o = book.spawn()
+            if o is None:
+                self._count("dropped_detections")
+                continue
+            det_of_track[o] = d
+            matched[o] = True
+        for o in np.nonzero(matched)[0]:
+            d = int(det_of_track[o])
+            meas9[o], quality[o], rng_d = _proposal_measurement(
+                res, d, *rpy, cam_t, self.dtype, canonicalize_yaw=self.canonicalize_yaw,
+            )
+            book.accept(o, i, boxes_c[d], rng_d, float(res.rotY[d]))
+            if self.range_weight_m is not None:
+                quality[o] *= min(1.0, (self.range_weight_m / max(rng_d, 1e-6)) ** 2)
+            if ex:
+                line_matched, mids, lmask_h = ex
+                cons = _line_track_quality(boxes_c, d, lmask_h, mids, line_matched)
+                quality[o] *= (1.0 - self.line_track_weight) + self.line_track_weight * cons
+            x0b, y0b, x1b, y1b = boxes_c[d]
+            bbox[o] = [(x0b + x1b) / 2, (y0b + y1b) / 2, x1b - x0b, y1b - y0b]
+            has[o] = True
+        return meas9, quality, has, bbox
+
+
+def _with_bbox_weight(frames: tracker.FrameInput, w: float) -> tracker.FrameInput:
+    """`frames` with the 2D box edges weighted `w` on every measured slot
+    (unchanged for w <= 0)."""
+    if w <= 0.0:
+        return frames
+    q = frames.quality
+    return frames._replace(bbox_weight=torch.where(frames.has_meas, torch.full_like(q, w), torch.zeros_like(q)))
+
+
+def _frontend_frames(fe: _FrontEnd, frames, n: int, T0: np.ndarray, *, depth_gate_m: float | None,
+                     checkpoint_path, checkpoint_every: int, use_yaw_prior: bool = False):
+    """The two-phase front end over a frame sequence (see
+    `run_online_frontend`): every frame's proposals at the fixed
+    camera-to-world pose `T0` (4x4), the yaw prior and the depth gate.
+    Returns (FrameInput with (N, O) axes on the device, FrontendReport)."""
+    dtype, dev, O = fe.dtype, fe.dev, fe.O
     # single-track path: the track's last yaw is each frame's proposal prior
-    yaw_prior_on = O == 1 and D == 1 and use_yaw_prior
-
-    roll0, pitch0, yaw0 = (float(v) for v in rotu.rot_to_euler_zyx(torch.as_tensor(T0[:3, :3])))
-    K = torch.as_tensor(np.asarray(K_np, np.float64)).to(device=dev, dtype=dtype)
+    yaw_prior_on = O == 1 and fe.D == 1 and use_yaw_prior
+    rpy0 = tuple(float(v) for v in rotu.rot_to_euler_zyx(torch.as_tensor(T0[:3, :3])))
     T0_t = torch.as_tensor(T0).to(device=dev, dtype=dtype)
+    cam_t = T0[:3, 3]
+    veto = None
+    if depth_gate_m is not None:
+        def veto(o, pos):  # the camera-relative range jumps from the track's last
+            rng = float(np.linalg.norm(pos - cam_t))
+            return fe.book.range[o] >= 0.0 and abs(rng - fe.book.range[o]) > depth_gate_m
 
     meas9 = np.zeros((n, O, 9))
     quality = np.zeros((n, O))
     has = np.zeros((n, O), bool)
     bbox2d = np.zeros((n, O, 4))  # associated YOLO box as [cx, cy, w, h]
-    book = _TrackletBook(O)
-    report = FrontendReport(n, [], [], [], [], 0)
-    lines_tr = _LineTracker(line_track_gate, stage_prefix) if line_track_weight > 0.0 else None
 
     start_frame = 0
     if checkpoint_path is not None:
         from cube_slam_wu_tpu_torch.slam import checkpoint as ckpt
 
-        def _ckpt_state():
-            return dict(
-                i_next=np.asarray(start_frame),
+        def _save(i_next):
+            report = fe.report
+            ckpt.save_pytree(checkpoint_path, dict(
+                i_next=np.asarray(i_next),
                 meas9=meas9, quality=quality, has=has, bbox2d=bbox2d,
-                **book.state(),
+                **fe.book.state(),
                 missing_image=np.asarray(report.missing_image, np.int64),
                 missing_detections=np.asarray(report.missing_detections, np.int64),
                 empty_detections=np.asarray(report.empty_detections, np.int64),
@@ -504,7 +553,7 @@ def _frontend_frames(
                 far_spawns=np.asarray(report.far_spawns),
                 cap_overflow_frames=np.asarray(report.cap_overflow_frames),
                 cap_fallbacks=np.asarray(report.cap_fallbacks),
-            )
+            ))
 
         cp = ckpt._resolve(checkpoint_path)
         if cp.exists():
@@ -517,9 +566,9 @@ def _frontend_frames(
             quality[:m] = data["quality"][:m]
             has[:m] = data["has"][:m]
             bbox2d[:m] = data["bbox2d"][:m]
-            book.load_state(data)
+            fe.book.load_state(data)
             get = lambda k: int(data[k]) if k in data else 0
-            report = FrontendReport(
+            fe.report = FrontendReport(
                 n,
                 list(data["missing_image"]),
                 list(data["missing_detections"]),
@@ -533,82 +582,19 @@ def _frontend_frames(
 
     for i in range(start_frame, n):
         if checkpoint_path is not None and i > start_frame and (i - start_frame) % max(checkpoint_every, 1) == 0:
-            state = _ckpt_state()
-            state["i_next"] = np.asarray(i)
-            ckpt.save_pytree(checkpoint_path, state)
-        gray_u8, rows = frames[i]
-        if gray_u8 is None:
-            report.missing_image.append(i)
+            _save(i)
+        ok, gray32, boxes_c, dmask = fe.take(i, *frames[i])
+        if not ok:
             continue
-        if rows is None:
-            report.missing_detections.append(i)
-            continue
-        boxes_c, _conf, dmask = uio.detections_from_rows(rows, n_max=D)
-        if not dmask.any():
-            report.empty_detections.append(i)
-            continue
-        gray32 = hostsync.push(np.ascontiguousarray(gray_u8, np.uint8), dev).to(torch.float32)
-        gray = gray32.to(dtype)
-        # line detection ALWAYS runs in f32 (dtype-pinned line sets)
-        with hostsync.stage(f"{stage_prefix}/detect_lines"):
-            lines32, lmask = detect_line_segments(gray32, detect_cfg)
-        lines = lines32.to(dtype)
-        extra = ()
-        if lines_tr is not None:
-            tracked = lines_tr.track(gray32, lines32, lmask)
-            if tracked is not None:
-                extra = (*tracked, lmask)
-        cfg = ProposalConfig(
-            max_lines=int(lines.shape[0]), sample_cam_roll_pitch=(i != 0), **over
-        )
-        xywh_t = hostsync.push(_xywh(boxes_c), dev, dtype)
-        dmask_t = hostsync.push(dmask, dev)
-        prior = None
-        if yaw_prior_on and np.isfinite(book.yaw[0]):
-            prior = hostsync.push(np.asarray(book.yaw[0]), dev, dtype)
-
-        def many_det(c, extra=extra):
-            with hostsync.stage(f"{stage_prefix}/proposals"):
-                r = detect_cuboids(gray, K, T0_t, xywh_t, dmask_t, lines, lmask, c, yaw_prior=prior)
-            return _pull_proposals(r, extra)
-
-        (res, ex) = many_det(cfg)
-        res, report = _exact_gather_fallback(res, report, lambda: many_det(_caps_off(cfg), ())[0])
-        det_valid = res.valid & dmask
-        if not det_valid.any():
-            report.no_valid_proposal.append(i)
-            continue
-
-        book.retire_stale(i, track_max_age)
-        det_of_track, matched, det_is_new = _associate_local(book, boxes_c, det_valid, min_iou)
-        cam_t = T0[:3, 3]
-        if depth_gate_m is not None:
-            # camera-relative range of each candidate
-            for o in np.nonzero(matched)[0]:
-                d = int(det_of_track[o])
-                rng_d = float(np.linalg.norm(np.asarray(res.pos[d], np.float64) - cam_t))
-                if book.range[o] >= 0.0 and abs(rng_d - book.range[o]) > depth_gate_m:
-                    matched[o] = False  # drop the handoff measurement
-        report, meas9[i], quality[i], bbox2d[i], has[i] = _spawn_and_measure(
-            book, report, res, boxes_c, det_of_track, matched, det_is_new, i, cam_t,
-            (roll0, pitch0, yaw0), dtype, spawn_range_m, range_weight_m, ex,
-            line_track_weight, canonicalize_yaw=canonicalize_yaw,
-        )
+        prior = fe.book.yaw[0] if yaw_prior_on and np.isfinite(fe.book.yaw[0]) else None
+        proposed = fe.propose(i, gray32, boxes_c, dmask, T0_t, yaw_prior=prior)
+        if proposed is not None:
+            meas9[i], quality[i], has[i], bbox2d[i] = fe.associate(i, proposed, boxes_c, cam_t, rpy0, veto)
 
     if checkpoint_path is not None:
-        state = _ckpt_state()
-        state["i_next"] = np.asarray(n)
-        ckpt.save_pytree(checkpoint_path, state)
-
-    frames_in = tracker.FrameInput(
-        meas=Cuboid.from_minimal(hostsync.push(meas9, dev, dtype)),
-        quality=hostsync.push(quality, dev, dtype),
-        has_meas=hostsync.push(has, dev),
-        active=torch.ones((n,), dtype=torch.bool, device=dev),
-        bbox=hostsync.push(bbox2d, dev, dtype),
-        bbox_weight=torch.zeros((n, O), dtype=dtype, device=dev),  # caller scales
-    )
-    return frames_in, report
+        _save(n)
+    # the 2D box edges unweighted: the caller scales them
+    return _assemble_frame(meas9, quality, has, bbox2d, 0.0, dev, dtype), fe.report
 
 
 def run_online_frontend(
@@ -661,19 +647,20 @@ def run_online_frontend(
     accepted yaw to each frame's proposals as a temporal prior (the
     reference's box_proposal_detail.cpp:178 TODO); while the track has none
     the frame runs without."""
+    from cube_slam_wu_tpu_torch.ops.detect import DetectConfig, detector_for
+
     dev = resolve_device(device)
     frames = _PathFrames(frame_specs)
     T0 = first_Twc.matrix().to(torch.float64).cpu().numpy()
-    return _frontend_frames(
-        frames, len(frames), K_np, T0, dtype, dev, stage_prefix="tum",
-        detect_cfg=detect_cfg, proposal_overrides=proposal_overrides,
-        max_objects=max_objects, max_detections=max_detections, min_iou=min_iou,
-        use_yaw_prior=use_yaw_prior, canonicalize_yaw=canonicalize_yaw,
-        line_track_weight=line_track_weight, line_track_gate=line_track_gate,
-        checkpoint_path=checkpoint_path, checkpoint_every=checkpoint_every,
-        track_max_age=track_max_age, depth_gate_m=depth_gate_m,
-        spawn_range_m=spawn_range_m, range_weight_m=range_weight_m,
+    detect_cfg = detect_cfg or DetectConfig()
+    fe = _FrontEnd(
+        len(frames), K_np, dtype, dev, detector_for(detect_cfg), detect_cfg, proposal_overrides,
+        max_objects, max_detections or max(1, max_objects), min_iou, track_max_age, spawn_range_m,
+        range_weight_m, line_track_weight, line_track_gate, canonicalize_yaw, stage_prefix="tum",
     )
+    return _frontend_frames(fe, frames, len(frames), T0, depth_gate_m=depth_gate_m,
+                            checkpoint_path=checkpoint_path, checkpoint_every=checkpoint_every,
+                            use_yaw_prior=use_yaw_prior)
 
 
 # ---------------------------------------------------------------------------
@@ -823,14 +810,7 @@ def run_online_slam(
             use_yaw_prior=use_yaw_prior, line_track_weight=line_track_weight,
             checkpoint_path=checkpoint_path, checkpoint_every=checkpoint_every, device=dev,
         )
-    if bbox_edge_weight > 0.0:
-        frames = frames._replace(
-            bbox_weight=torch.where(
-                frames.has_meas,
-                torch.full_like(frames.quality, bbox_edge_weight),
-                torch.zeros_like(frames.quality),
-            )
-        )
+    frames = _with_bbox_weight(frames, bbox_edge_weight)
     point_obs = None
     if point_weight > 0.0:
         from cube_slam_wu_tpu_torch.slam.features import build_point_tracks
@@ -1022,6 +1002,8 @@ def run_kitti_frames(
 
     `min_meas` reports a landmark as valid only after it has accepted that
     many measurements (the graph keeps every slot)."""
+    from cube_slam_wu_tpu_torch.ops.detect import DetectConfig, detect_line_segments, detector_for
+
     dev = resolve_device(device)
     n = len(frames) if n_frames is None else min(int(n_frames), len(frames))
     if n == 0:
@@ -1036,59 +1018,38 @@ def run_kitti_frames(
         raise ValueError("point_weight > 0 needs the interleaved loop (pose_feedback=True)")
     if on_result is not None and not pose_feedback:
         raise ValueError("on_result needs the interleaved loop (pose_feedback=True)")
-    if isinstance(line_track_weight, str):  # "auto"
-        line_track_weight = 0.5 if (pose_feedback and point_weight == 0.0) else 0.0
+    detect_cfg = detect_cfg or DetectConfig()
+    if pose_feedback:
+        # the interleaved loop runs the plain detector whatever
+        # `short_recovery` says, as the JAX package's does; `nfa_validation`
+        # is honoured
+        detect = detect_line_segments
+        if isinstance(line_track_weight, str):  # "auto"
+            line_track_weight = 0.5 if point_weight == 0.0 else 0.0
+    else:
+        # the two-phase schedule, as the JAX package's: the recovery route,
+        # no line tracks, max(1, max_objects) boxes unless told
+        detect, line_track_weight = detector_for(detect_cfg), 0.0
+        max_detections = max_detections or max(1, max_objects)
+    fe = _FrontEnd(
+        n, K_np, dtype, dev, detect, detect_cfg, proposal_overrides, max_objects, max_detections,
+        min_iou, track_max_age, spawn_range_m, range_weight_m, line_track_weight, line_track_gate,
+    )
     if pose_feedback:
         return _run_kitti_tracked(
-            frames, n, K_np, T0, timestamps, dtype, dev,
-            iterations=iterations,
-            detect_cfg=detect_cfg,
-            proposal_overrides=proposal_overrides,
-            soft_gate_alpha=soft_gate_alpha,
-            max_objects=max_objects,
-            max_detections=max_detections,
-            min_iou=min_iou,
-            window=window,
-            robust_delta=robust_delta,
-            bbox_edge_weight=bbox_edge_weight,
-            track_max_age=track_max_age,
-            spawn_range_m=spawn_range_m,
-            min_meas=min_meas,
-            range_weight_m=range_weight_m,
-            checkpoint_path=checkpoint_path,
-            checkpoint_every=checkpoint_every,
-            point_weight=point_weight,
-            n_points=n_points,
-            point_opts=point_opts,
-            line_track_weight=line_track_weight,
-            line_track_gate=line_track_gate,
-            on_frame=on_frame,
-            on_result=on_result,
+            fe, frames, n, K_np, T0, timestamps, iterations=iterations,
+            soft_gate_alpha=soft_gate_alpha, window=window, robust_delta=robust_delta,
+            bbox_edge_weight=bbox_edge_weight, min_meas=min_meas, checkpoint_path=checkpoint_path,
+            checkpoint_every=checkpoint_every, point_weight=point_weight, n_points=n_points,
+            point_opts=point_opts, on_frame=on_frame, on_result=on_result,
         )
 
     first_Twc = SE3.from_matrix(torch.as_tensor(T0).to(dtype))
     frames_in, report = _frontend_frames(
-        frames, n, K_np, first_Twc.matrix().to(torch.float64).numpy(), dtype, dev,
-        detect_cfg=detect_cfg,
-        proposal_overrides=proposal_overrides,
-        max_objects=max_objects,
-        max_detections=max_detections,
-        min_iou=min_iou,
-        checkpoint_path=checkpoint_path,
-        checkpoint_every=checkpoint_every,
-        track_max_age=track_max_age,
-        depth_gate_m=depth_gate_m,
-        spawn_range_m=spawn_range_m,
-        range_weight_m=range_weight_m,
+        fe, frames, n, first_Twc.matrix().to(torch.float64).numpy(), depth_gate_m=depth_gate_m,
+        checkpoint_path=checkpoint_path, checkpoint_every=checkpoint_every,
     )
-    if bbox_edge_weight > 0.0:
-        frames_in = frames_in._replace(
-            bbox_weight=torch.where(
-                frames_in.has_meas,
-                torch.full_like(frames_in.quality, bbox_edge_weight),
-                torch.zeros_like(frames_in.quality),
-            )
-        )
+    frames_in = _with_bbox_weight(frames_in, bbox_edge_weight)
     with hostsync.stage("kitti/run_incremental"):
         graph, chi2s, cube_hist = tracker.run_incremental(
             first_Twc.to(dev),
@@ -1097,7 +1058,7 @@ def run_kitti_frames(
             soft_gate_alpha=soft_gate_alpha,
             window=window,
             robust_delta=robust_delta,
-            K=torch.as_tensor(K_np).to(device=dev, dtype=dtype) if bbox_edge_weight > 0.0 else None,
+            K=fe.K if bbox_edge_weight > 0.0 else None,
         )
     if on_frame is not None:
         on_frame(n - 1)
@@ -1118,48 +1079,26 @@ def run_kitti_frames(
     )
 
 
-def _run_kitti_tracked(
-    frames,
-    n: int,
-    K_np: np.ndarray,
-    T0: np.ndarray,
-    timestamps: np.ndarray,
-    dtype,
-    dev,
-    iterations: int,
-    detect_cfg,
-    proposal_overrides,
-    soft_gate_alpha,
-    max_objects: int,
-    max_detections: int,
-    min_iou: float,
-    window: int | None,
-    robust_delta,
-    bbox_edge_weight: float,
-    track_max_age: int | None,
-    spawn_range_m: float | None = 25.0,
-    min_meas: int = 2,
-    range_weight_m: float | None = None,
-    checkpoint_path=None,
-    checkpoint_every: int = 25,
-    assoc_gate_m: float = 3.0,
-    point_weight: float = 0.0,
-    n_points: int = 96,
-    point_opts: dict | None = None,
-    line_track_weight: float = 0.0,
-    line_track_gate: float = 80.0,
-    on_frame=None,
-    on_result=None,
-):
+# the interleaved loop's 3D association gate (m): an IoU match is dropped
+# when the detection's world-lifted position is farther than this from the
+# track's landmark estimate
+ASSOC_GATE_M = 3.0
+
+
+def _run_kitti_tracked(fe: _FrontEnd, frames, n: int, K_np: np.ndarray, T0: np.ndarray,
+                       timestamps: np.ndarray, *, iterations: int, soft_gate_alpha, window,
+                       robust_delta, bbox_edge_weight: float, min_meas: int, checkpoint_path,
+                       checkpoint_every: int, point_weight: float, n_points: int, point_opts,
+                       on_frame, on_result):
     """Interleaved front-end/back-end loop (see run_kitti_frames): one
     tracker step per frame, with the next frame's proposal grid anchored at
     the tracker's constant-velocity predicted pose.
 
-    `assoc_gate_m` is a 3D association gate only this mode can provide: an
-    IoU match is vetoed when the detection's world-lifted cuboid position is
-    more than this many metres from the track's current landmark estimate
-    (a seamless handoff between objects on a forward drive would otherwise
-    build one chimera track).  The vetoed measurement is DROPPED only.
+    The 3D association gate is one only this mode can provide: an IoU match
+    is vetoed when the detection's world-lifted cuboid position is more than
+    ASSOC_GATE_M from the track's current landmark estimate (a seamless
+    handoff between objects on a forward drive would otherwise build one
+    chimera track).  The vetoed measurement is DROPPED only.
 
     `point_weight > 0` adds point landmarks to the windowed joint BA
     (requires `window`): Harris+ZNCC features tracked incrementally
@@ -1174,18 +1113,10 @@ def _run_kitti_tracked(
     and `kitti/step`; with points, `kitti/step` also books the frame's
     `lm_rejected` iterations and `ba_points` (valid points in the solve),
     read with the step's outputs."""
-    from cube_slam_wu_tpu_torch.ops.detect import DetectConfig, detect_line_segments
-    from cube_slam_wu_tpu_torch.ops.proposal import ProposalConfig, detect_cuboids
     from cube_slam_wu_tpu_torch.slam.graph import CameraObjectGraph
     from cube_slam_wu_tpu_torch.slam.window import CubePrior
 
-    # this interleaved loop runs the plain detector whatever `short_recovery`
-    # says, as the JAX package's does (the two-phase schedule's front end
-    # takes the recovery route); `nfa_validation` is honoured
-    detect_cfg = detect_cfg or DetectConfig()
-    over = _proposal_overrides(proposal_overrides)
-    O, D = max_objects, max_detections
-    K_t = torch.as_tensor(K_np).to(device=dev, dtype=dtype)
+    dtype, dev, O = fe.dtype, fe.dev, fe.O
     first_Twc = SE3.from_rot_trans(
         torch.as_tensor(T0[:3, :3]).to(device=dev, dtype=dtype),
         torch.as_tensor(T0[:3, 3]).to(device=dev, dtype=dtype),
@@ -1195,7 +1126,7 @@ def _run_kitti_tracked(
         torch.as_tensor(T0[:3, :3]).to(dtype), torch.as_tensor(T0[:3, 3]).to(dtype)
     ).matrix().to(torch.float64).numpy()
 
-    graph = CameraObjectGraph.empty(n, O, dtype, dev)._replace(K=K_t)
+    graph = CameraObjectGraph.empty(n, O, dtype, dev)._replace(K=fe.K)
     windowed = window is not None and window < n
     use_points = point_weight > 0.0
     if use_points and not windowed:
@@ -1205,7 +1136,7 @@ def _run_kitti_tracked(
         from cube_slam_wu_tpu_torch.slam.features import IncrementalTracker
 
         step = tracker.make_windowed_point_step(
-            window, K_t, iterations, None, soft_gate_alpha, 1.0,
+            window, fe.K, iterations, None, soft_gate_alpha, 1.0,
             robust_delta, point_weight=point_weight, **(point_opts or {}),
         )
         carry = (graph, CubePrior.empty(O, dtype, dev), tracker.PointState.empty(n, n_points, dtype, dev))
@@ -1218,12 +1149,12 @@ def _run_kitti_tracked(
         step = tracker.make_incremental_step(iterations, None, soft_gate_alpha, 1.0, robust_delta)
         carry = graph
 
-    book = _TrackletBook(O)
-    report = FrontendReport(n, [], [], [], [], 0)
+    def graph_of(carry):  # the windowed steps carry (graph, prior[, points])
+        return carry[0] if windowed else carry
+
     chi2s = np.zeros(n)
     cube_hist = np.zeros((n, O, 9))
     start_frame = 0
-    lines_tr = _LineTracker(line_track_gate) if line_track_weight > 0.0 else None
 
     if checkpoint_path is not None:
         from cube_slam_wu_tpu_torch.slam import checkpoint as ckpt
@@ -1243,7 +1174,7 @@ def _run_kitti_tracked(
         if data is not None:
             start_frame = min(int(data["i_next"]), n)
             carry = resumed_carry
-            book.load_state(data)
+            fe.book.load_state(data)
             m = min(n, data["chi2s"].shape[0])
             chi2s[:m] = data["chi2s"][:m]
             cube_hist[:m] = data["cube_hist"][:m]
@@ -1251,16 +1182,14 @@ def _run_kitti_tracked(
                 ftracker.load_state(data)
                 prev = frames[start_frame - 1][0] if start_frame > 0 else None
                 if prev is not None:
-                    ftracker.prev_gray = hostsync.push(
-                        np.ascontiguousarray(prev, np.uint8), dev
-                    ).to(torch.float32)
+                    ftracker.prev_gray = fe.upload(prev)
 
         def _save(i_next):
             ckpt.save_pytree(
                 cp,
                 dict(
                     i_next=np.asarray(i_next),
-                    **book.state(),
+                    **fe.book.state(),
                     **(ftracker.state() if ftracker is not None else {}),
                     chi2s=chi2s, cube_hist=cube_hist,
                 ),
@@ -1273,16 +1202,18 @@ def _run_kitti_tracked(
     Tcw_prev = Tcw_prevprev = None  # (4,4) float64, frames i-1 / i-2
     cube_pos_h = np.zeros((O, 3))
     cube_valid_h = np.zeros(O, bool)
+
+    def veto(o, pos):  # the 3D gate, against the caches as they stand
+        return cube_valid_h[o] and float(np.linalg.norm(pos - cube_pos_h[o])) > ASSOC_GATE_M
+
     for i in range(start_frame, n):
         if checkpoint_path is not None and i > start_frame and (i - start_frame) % max(checkpoint_every, 1) == 0:
             _save(i)
 
-        g = carry if not windowed else carry[0]
         if i > 0 and Tcw_prev is None:
             # resumed mid-run: one-time refill of the host caches
             Tcw_prev, Tcw_prevprev, cube_pos_h, cube_valid_h = hostsync.pull(
-                (g.cam_Tcw[i - 1].matrix(), g.cam_Tcw[max(i - 2, 0)].matrix(),
-                 g.cube.pose.trans, g.cube_valid)
+                _post_step_state(graph_of(carry), i - 1)
             )
             Tcw_prev = np.asarray(Tcw_prev, np.float64)
             Tcw_prevprev = np.asarray(Tcw_prevprev, np.float64)
@@ -1298,28 +1229,8 @@ def _run_kitti_tracked(
         roll_p = float(np.arctan2(R_p[2, 1], R_p[2, 2]))
         yaw_p = float(np.arctan2(R_p[1, 0], R_p[0, 0]))
 
-        meas9 = np.zeros((O, 9))  # from_minimal(0) == Cuboid.identity
-        quality_i = np.zeros(O)
-        has_i = np.zeros(O, bool)
-        bbox_i = np.zeros((O, 4))
-
-        gray_u8, rows = frames[i]
-        ok = True
-        gray = gray32 = boxes_c = dmask = None
-        if gray_u8 is None:
-            report.missing_image.append(i)
-            ok = False
-        else:
-            gray32 = hostsync.push(np.ascontiguousarray(gray_u8, np.uint8), dev).to(torch.float32)
-            gray = gray32.to(dtype)
-        if ok and rows is None:
-            report.missing_detections.append(i)
-            ok = False
-        if ok:
-            boxes_c, _conf, dmask = uio.detections_from_rows(rows, n_max=D)
-            if not dmask.any():
-                report.empty_detections.append(i)
-                ok = False
+        # the point tracker needs every image, so each is uploaded
+        ok, gray32, boxes_c, dmask = fe.take(i, *frames[i], upload_any_image=True)
 
         # -- incremental feature tracking (every frame with an image) -------
         pt_obs = np.zeros((n_points, 2))
@@ -1332,71 +1243,27 @@ def _run_kitti_tracked(
                     gray32, boxes_c[dmask] if boxes_c is not None else None
                 )
 
-        if ok:
-            with hostsync.stage("kitti/detect_lines"):
-                lines32, lmask = detect_line_segments(gray32, detect_cfg)
-            extra = ()
-            if lines_tr is not None:
-                tracked = lines_tr.track(gray32, lines32, lmask)
-                if tracked is not None:
-                    extra = (*tracked, lmask)
-            cfg = ProposalConfig(max_lines=int(lines32.shape[0]), sample_cam_roll_pitch=(i != 0), **over)
-            T_pred_t = hostsync.push(T_pred, dev, dtype)
-            xywh_t = hostsync.push(_xywh(boxes_c), dev, dtype)
-            dmask_t = hostsync.push(dmask, dev)
-            lines = lines32.to(dtype)
-
-            def kitti_det(c, extra=extra):
-                with hostsync.stage("kitti/proposals"):
-                    r = detect_cuboids(gray, K_t, T_pred_t, xywh_t, dmask_t, lines, lmask, c)
-                return _pull_proposals(r, extra)
-
-            res, ex = kitti_det(cfg)
-            res, report = _exact_gather_fallback(res, report, lambda: kitti_det(_caps_off(cfg), ())[0])
-            det_valid = res.valid & dmask
-            if not det_valid.any():
-                report.no_valid_proposal.append(i)
-                ok = False
+        proposed = fe.propose(i, gray32, boxes_c, dmask, T_pred) if ok else None
         with hostsync.stage("kitti/associate"):
-            if ok:
-                book.retire_stale(i, track_max_age)
-                det_of_track, matched, det_is_new = _associate_local(book, boxes_c, det_valid, min_iou)
-                # 3D gate against the landmark estimate (cached from the last
-                # step's read); on veto the measurement is DROPPED only
-                if assoc_gate_m is not None and assoc_gate_m > 0:
-                    for o in np.nonzero(matched)[0]:
-                        if not cube_valid_h[o]:
-                            continue
-                        d = int(det_of_track[o])
-                        dist3 = float(np.linalg.norm(np.asarray(res.pos[d], np.float64) - cube_pos_h[o]))
-                        if dist3 > assoc_gate_m:
-                            matched[o] = False
-                report, meas9, quality_i, bbox_i, has_i = _spawn_and_measure(
-                    book, report, res, boxes_c, det_of_track, matched, det_is_new, i, T_pred[:3, 3],
-                    (roll_p, pitch_p, yaw_p), dtype, spawn_range_m, range_weight_m, ex,
-                    line_track_weight,
-                )
-
-            frame = _assemble_frame(meas9, quality_i, has_i, bbox_i, bbox_edge_weight, dev, dtype)
+            # from_minimal(0) == Cuboid.identity where nothing is measured
+            meas = (np.zeros((O, 9)), np.zeros(O), np.zeros(O, bool), np.zeros((O, 4)))
+            if proposed is not None:
+                meas = fe.associate(i, proposed, boxes_c, T_pred[:3, 3], (roll_p, pitch_p, yaw_p), veto)
+            frame = _assemble_frame(*meas, bbox_edge_weight, dev, dtype)
         carry_before = carry
         with hostsync.stage("kitti/step"):
+            inp = (i, frame, first_Twc)
             if use_points:
-                inp = (i, frame, first_Twc,
-                       hostsync.push(pt_obs, dev, dtype), hostsync.push(pt_alive, dev),
-                       hostsync.push(pt_respawn, dev), hostsync.push(pt_ground, dev))
-                carry, (chi2, cube_min, stats) = step(carry, inp)
-                stats = (stats,)
-            else:
-                inp = (i, frame, first_Twc)
-                carry, (chi2, cube_min) = step(carry, inp)
-                stats = ()
+                inp += (hostsync.push(pt_obs, dev, dtype), hostsync.push(pt_alive, dev),
+                        hostsync.push(pt_respawn, dev), hostsync.push(pt_ground, dev))
+            # the point step also returns its LM counts
+            carry, (chi2, cube_min, *stats) = step(carry, inp)
         if on_frame is not None:
             on_frame(i)
         # ONE read per frame: the step's outputs + everything the next
         # frame's host-side prediction and association gate need
-        g_next = carry[0] if windowed else carry
         chi2_h, cube_min_h, T1_h, T2_h, cube_pos_h, cube_valid_h, *stats_h = hostsync.pull(
-            (chi2, cube_min) + _post_step_state(g_next, i) + stats
+            (chi2, cube_min) + _post_step_state(graph_of(carry), i) + tuple(stats)
         )
         accepted = ba_points = None
         if stats_h:
@@ -1416,9 +1283,9 @@ def _run_kitti_tracked(
 
     if checkpoint_path is not None:
         _save(n)
-    report = report._replace(n_frames=n)
+    report = fe.report._replace(n_frames=n)
 
-    graph = carry[0] if windowed else carry
+    graph = graph_of(carry)
     final = (graph.cam_Twc().to_xyzq(), graph.cube.to_minimal(), graph.cube_valid)
     if windowed:
         final += (carry[1].valid,)
@@ -1433,7 +1300,7 @@ def _run_kitti_tracked(
         timestamps=timestamps[:n],
         cube_history=cube_hist[:n],
         cubes_minimal=cubes,
-        cube_valid=cube_valid & (book.count >= min_meas),
+        cube_valid=cube_valid & (fe.book.count >= min_meas),
         frontend_report=report,
         prior_valid=host[3] if windowed else None,
         points=host[4] if use_points else None,

@@ -21,6 +21,7 @@ which the port avoids by design.
 
 import numpy as np
 
+from cube_slam_wu_tpu_torch.utils import hostsync
 from cube_slam_wu_tpu_torch.utils import synth as tsynth
 from tum_parity import tilt
 
@@ -54,6 +55,25 @@ def port_run_f64(drive, mode):
     seq_dir, det_dir, poses, _ = drive
     kw = dict(COMMON, **MODES[mode])
     return tpipe.run_kitti_slam(seq_dir, det_dir, poses, dtype=torch.float64, device="cpu", **kw)
+
+
+# what the pinning tests hold a drive to, for each stage label it booked
+BOOKED_KEYS = ("entries", "syncs", "h2d_bytes", "d2h_bytes")
+
+
+def booked(before, after) -> dict:
+    """What a drive booked between two `hostsync.snapshot()`s: for every
+    stage label (the benchmark's per-layer metrics read the drivers' labels),
+    the tuple of its BOOKED_KEYS counts."""
+    stages = hostsync.delta(before, after)["by_stage"]
+    return {label: tuple(int(c[k]) for k in BOOKED_KEYS) for label, c in stages.items()}
+
+
+def port_run_booked(drive, mode):
+    """`port_run_f64(drive, mode)` and what it booked (`booked`)."""
+    before = hostsync.snapshot()
+    out = port_run_f64(drive, mode)
+    return out, booked(before, hostsync.snapshot())
 
 
 def write_drive(root):

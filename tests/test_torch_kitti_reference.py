@@ -11,6 +11,8 @@ the session ended by the hook after 6 (frames 4 and 5 absorb into the prior).
 - the hook fires once per frame with the values `SlamOutput` returns, ends
   the run when it returns true, and adds no host read;
 - the step's counts are consistent with its LM iterations;
+- the run books the same entries, reads and bytes by stage label as the
+  driver did before its two frame loops shared one front end;
 - the reference loads nothing of the port, of the JAX package or of JAX.
 """
 
@@ -28,6 +30,7 @@ import torch
 from cube_slam_wu_tpu_torch.slam import pipeline, tracker
 from cube_slam_wu_tpu_torch.slam import window as win_mod
 from cube_slam_wu_tpu_torch.utils import hostsync
+from kitti_parity import booked
 
 BENCH = pathlib.Path(__file__).resolve().parents[1] / "benchmark"
 
@@ -72,7 +75,8 @@ def frames():
 def hooked_run():
     """The session ended by the hook after STOP_AFTER frames: (its output,
     the FrameResults, the host reads counted before the run and at each call
-    of the hook, what the run booked under `kitti/step`)."""
+    of the hook, what the run booked under `kitti/step`, and its entries,
+    reads and bytes by stage label (`kitti_parity.booked`))."""
     torch.set_num_threads(1)
     got, reads = [], []
 
@@ -84,8 +88,9 @@ def hooked_run():
     w = world()
     snap = hostsync.snapshot()
     out = pipeline.run_kitti_frames(frames(), w.K, w.T_wc[0], on_result=on_result, **kitti_kw())
-    book = hostsync.delta(snap, hostsync.snapshot())["by_stage"]["kitti/step"]
-    return out, got, [snap["syncs"]] + reads, book
+    after = hostsync.snapshot()
+    book = hostsync.delta(snap, after)["by_stage"]["kitti/step"]
+    return out, got, [snap["syncs"]] + reads, book, booked(snap, after)
 
 
 def arrays(r):
@@ -269,6 +274,37 @@ def test_step_counts_add_up_to_the_iterations():
     _, (_, _, stats) = port_step()(r.carry_before, r.step_input)
     assert hostsync.snapshot()["by_stage"].get("kitti/step") == before
     assert [int(v) for v in stats] == [r.lm_accepted, r.ba_points]
+
+
+# What the hooked run books by stage label: (entries, syncs, h2d_bytes,
+# d2h_bytes) (kitti_parity.booked), recorded from the driver at commit a9456dc,
+# before its two frame loops shared one front end.  The per-layer metrics of
+# kitti_points_w16 read these labels; a change that alters the reads on purpose
+# updates the literals.
+BOOKED = {
+    "kitti/associate": (6, 0, 1368, 0),
+    "kitti/detect_lines": (6, 0, 0, 0),
+    "kitti/features": (6, 6, 1360, 1504),
+    "kitti/proposals": (6, 0, 0, 0),
+    "kitti/step": (6, 0, 1056, 0),
+    "lines/hough": (6, 0, 0, 0),
+    "lines/merge": (6, 14, 0, 14),
+    "lines/runs": (6, 0, 0, 0),
+    "other": (0, 13, 461592, 3784),
+    "proposals/canny": (6, 84, 0, 84),
+    "proposals/edt": (6, 0, 0, 0),
+    "proposals/grid": (12, 0, 0, 0),
+    "proposals/merge": (6, 11, 0, 11),
+    "proposals/rank": (6, 0, 0, 0),
+    "proposals/score": (6, 0, 0, 0),
+    "step/insert": (6, 0, 0, 0),
+    "step/lm": (6, 0, 0, 0),
+    "step/points": (6, 0, 0, 0),
+}
+
+
+def test_run_books_the_same_stages_reads_and_bytes():
+    assert hooked_run()[4] == BOOKED
 
 
 def test_on_result_needs_the_interleaved_loop():
