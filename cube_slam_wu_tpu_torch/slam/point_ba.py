@@ -29,10 +29,11 @@ its first call for a signature (the inputs' structure, shapes, dtypes and
 device, the Python numbers among them, and the options) warms up, captures
 `optimize` into a graph and keeps the graph with its static input and output
 tensors; every call copies the inputs into the static ones and replays, so
-the host enqueues one graph instead of the LM's tens of thousands of kernels.
-It hands back clones of the static outputs: the next replay overwrites those
-buffers, and a caller keeps what it got (the fixed-lag step puts the result
-into its carry).  On the CPU it is plain `optimize`.
+the host enqueues one graph instead of the LM's tens of thousands of kernels
+(`utils.capture.Captured`).  It hands back clones of the static outputs: the
+next replay overwrites those buffers, and a caller keeps what it got (the
+fixed-lag step puts the result into its carry).  On the CPU it is plain
+`optimize`.
 """
 
 from __future__ import annotations
@@ -52,7 +53,7 @@ from cube_slam_wu_tpu_torch.slam.ba import (
     tree_where,
 )
 from cube_slam_wu_tpu_torch.slam.graph import CameraObjectGraph
-from cube_slam_wu_tpu_torch.utils.tree import tree_flatten, tree_map, tree_unflatten
+from cube_slam_wu_tpu_torch.utils.capture import Captured
 
 
 class PointFactors(NamedTuple):
@@ -369,73 +370,12 @@ def optimize(
     )
 
 
-class _Graph(NamedTuple):
-    graph: "torch.cuda.CUDAGraph"
-    inputs: list  # the static input tensors, in `tree_flatten` order
-    outputs: PointBAResult  # the static outputs
-
-
-class CapturedLM:
+class CapturedLM(Captured):
     """`optimize`, captured in one CUDA graph per signature and replayed
-    (module docstring).  `captures` and `replays` count the calls that
-    captured and those that replayed (every call on a card replays).
-
-    Capture needs the card to itself: no other thread may launch CUDA work
-    while a first call for a signature runs."""
+    (`utils.capture.Captured`; module docstring)."""
 
     def __init__(self):
-        self.graphs: dict = {}
-        self.captures = 0
-        self.replays = 0
-
-    def __call__(
-        self,
-        graph: CameraObjectGraph,
-        pts: PointFactors,
-        K: torch.Tensor,
-        iterations: int = 5,
-        fix_first: bool = True,
-        robust_delta: float | None = None,
-        prior=None,
-        point_huber: float | None = None,
-    ) -> PointBAResult:
-        options = dict(iterations=iterations, fix_first=fix_first,
-                       robust_delta=robust_delta, point_huber=point_huber)
-        if K.device.type != "cuda":
-            return optimize(graph, pts, K, prior=prior, **options)
-        leaves, spec = tree_flatten((graph, pts, K, prior))
-        key = (spec, tuple(options.items()))
-        found = self.graphs.get(key)
-        if found is None:
-            found = self.graphs[key] = _capture(spec, leaves, options, K.device)
-            self.captures += 1
-        for static, new in zip(found.inputs, leaves):
-            static.copy_(new)
-        found.graph.replay()
-        self.replays += 1
-        return tree_map(torch.clone, found.outputs)
-
-
-def _capture(spec, leaves: list, options: dict, device) -> _Graph:
-    """Warm `optimize` up on a side stream (library handles, workspaces, the
-    device constants of `core/`), then capture it on static copies of
-    `leaves`."""
-    static = [t.clone() for t in leaves]
-
-    def run():
-        graph, pts, K, prior = tree_unflatten(spec, static)
-        return optimize(graph, pts, K, prior=prior, **options)
-
-    with torch.cuda.device(device):
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            run()
-        torch.cuda.current_stream().wait_stream(side)
-        cuda_graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(cuda_graph):
-            outputs = run()
-    return _Graph(cuda_graph, static, outputs)
+        super().__init__(optimize)
 
 
 # the process's captured LM: a later run loop in the process (a fresh

@@ -18,6 +18,7 @@ functionally: a step returns new tensors and leaves its input untouched.
 
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple
 
 import torch
@@ -262,6 +263,19 @@ class PointState(NamedTuple):
         )
 
 
+@contextlib.contextmanager
+def _booked(name: str, captured):
+    """Book the captures and replays that `captured` (a
+    `utils.capture.Captured`) makes inside the context as `<name>_captures`
+    and `<name>_replays` under `kitti/step` (host counts, no read)."""
+    seen = captured.captures, captured.replays
+    yield
+    for kind, before, now in (("captures", seen[0], captured.captures),
+                              ("replays", seen[1], captured.replays)):
+        if now > before:
+            hostsync.add_count("kitti/step", f"{name}_{kind}", now - before)
+
+
 def _pinhole_inverse(K: torch.Tensor) -> torch.Tensor:
     """K^-1 without a host read (`inv_ex` reports failure in a flag that
     nothing reads; a pinhole K is always invertible)."""
@@ -312,24 +326,29 @@ def make_windowed_point_step(
     whose in-window observations are ALL rejected by the reprojection gate
     (>= 3 of them) is demoted to invalid so the slot can re-initialise.
 
-    The joint LM is `point_ba.captured_lm`: every frame solves the window at
-    the same shapes, so on a card the LM is captured in a CUDA graph on the
-    first frame of the process's first session and replayed on every later
-    frame, of that session and of later ones; on the CPU it is plain
-    `point_ba.optimize`.  What it returns are clones of the graph's outputs,
-    since they go into the carry and the next replay overwrites the graph's
-    own buffers.
+    The prior's absorption is `window.captured_absorb` and the joint LM is
+    `point_ba.captured_lm` (`utils.capture.Captured`): every frame absorbs a
+    frame and solves the window at the same shapes, so on a card each is
+    captured in a CUDA graph on the first frame of the process's first
+    session and replayed on every later frame, of that session and of later
+    ones; on the CPU they are plain `window.absorb_frame` and
+    `point_ba.optimize`.  What they return are clones of the graphs'
+    outputs, since they go into the carry and the next replay overwrites the
+    graphs' own buffers.  Frames before the window is full absorb with an
+    empty mask, as every frame runs the same graph.
 
     The step's outputs are (chi2, cubes, stats): `stats` (2,) int64 holds the
     LM iterations whose step was taken and the valid points in the solve,
     for the caller to read with its pull of the other two.  Its stages
-    (`utils.hostsync`): `step/insert` (frame insertion and the prior's
-    absorption), `step/points` (observation bookkeeping, DLT, the ground
-    bootstrap, the reprojection gate and demotion) and `step/lm` (the LM: on
-    a card the copies into the graph's inputs, one replay and the clones of
-    its outputs, while the LM's device time waits at the caller's next
-    read).  It books each LM that replayed as `lm_replays` and each capture
-    as `lm_captures` under `kitti/step` (host counts, no read)."""
+    (`utils.hostsync`): `step/insert` (frame insertion, eager, and the
+    prior's absorption: on a card the copies into its graph's inputs, one
+    replay and the clones of its outputs), `step/points` (observation
+    bookkeeping, DLT, the ground bootstrap, the reprojection gate and
+    demotion) and `step/lm` (the LM: the same on a card, while the LM's
+    device time waits at the caller's next read).  It books each absorption
+    and each LM that replayed as `absorb_replays` and `lm_replays`, and each
+    capture as `absorb_captures` and `lm_captures`, under `kitti/step` (host
+    counts, no read)."""
     from cube_slam_wu_tpu_torch.core import rotations as rotu
     from cube_slam_wu_tpu_torch.slam import point_ba
     from cube_slam_wu_tpu_torch.slam.point_ba import PointFactors
@@ -350,14 +369,16 @@ def make_windowed_point_step(
             # -- absorb the departing frame into the cuboid prior -----------
             d = max(i - W, 0)
             mask_d = g.cube_meas_mask[d] if i >= W else torch.zeros_like(g.cube_meas_mask[d])
-            prior_new = win_mod.absorb_frame(
-                prior,
-                g.cam_Tcw[d].inverse(),
-                Cuboid(g.cube_meas.pose[d], g.cube_meas.scale[d]),
-                g.cube_meas_weight[d],
-                mask_d,
-                g.cube,
-            )
+            absorb = win_mod.captured_absorb
+            with _booked("absorb", absorb):
+                prior_new = absorb(
+                    prior,
+                    g.cam_Tcw[d].inverse(),
+                    Cuboid(g.cube_meas.pose[d], g.cube_meas.scale[d]),
+                    g.cube_meas_weight[d],
+                    mask_d,
+                    g.cube,
+                )
         dtype = ps.points.dtype
         dev = ps.points.device
         P = ps.points.shape[0]
@@ -440,17 +461,13 @@ def make_windowed_point_step(
             obs_weight=torch.full((W, P), point_weight, dtype=dtype, device=dev),
         )
         lm = point_ba.captured_lm
-        seen = {"lm_captures": lm.captures, "lm_replays": lm.replays}
-        with hostsync.stage("step/lm"):
+        with _booked("lm", lm), hostsync.stage("step/lm"):
             result = lm(
                 win, factors, K,
                 iterations=iterations, fix_first=True,
                 robust_delta=robust_delta, prior=prior_new,
                 point_huber=point_huber,
             )
-        for name, n in (("lm_captures", lm.captures), ("lm_replays", lm.replays)):
-            if n > seen[name]:
-                hostsync.add_count("kitti/step", name, n - seen[name])
         g = win_mod.window_scatter(g, result.cam_Tcw, s)
         g = g._replace(cube=result.cube)
 

@@ -30,6 +30,7 @@ import torch
 from cube_slam_wu_tpu_torch.core.cuboid import Cuboid
 from cube_slam_wu_tpu_torch.core.se3 import SE3
 from cube_slam_wu_tpu_torch.slam.graph import CameraObjectGraph
+from cube_slam_wu_tpu_torch.utils.capture import Captured
 from cube_slam_wu_tpu_torch.utils.tree import tree_map, tree_where
 
 _EPS = 1e-9
@@ -169,6 +170,17 @@ def absorb_frame(
         lin=lin,
         valid=valid,
     )
+
+
+# the process's captured absorption (`utils.capture.Captured`): the fixed-lag
+# point step (`tracker.make_windowed_point_step`) absorbs a departing frame at
+# the same shapes on every frame, so on a card `absorb_frame` is captured once
+# per signature (the inputs' shapes, dtypes and device, and `absorb_gate` and
+# `info_cap` where a caller passes them) and replayed; on the CPU it is plain
+# `absorb_frame`.  The function is
+# looked up when called, so what replaces the module's `absorb_frame` is what
+# runs.
+captured_absorb = Captured(lambda *args, **options: absorb_frame(*args, **options))
 
 
 def _cholesky_nan(A: torch.Tensor) -> torch.Tensor:

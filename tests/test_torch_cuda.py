@@ -175,50 +175,87 @@ def test_sharded_ba_world_one_on_nccl():
         dist.destroy_process_group()
 
 
-class _CheckedLM:
-    """A fresh `point_ba.CapturedLM` that also runs eager `optimize` on every
-    call's inputs, keeps the largest deviation of the replay from it, and
-    checks that the result of the call before is unchanged (no output of one
-    replay aliases a buffer of the next)."""
+class _Checked:
+    """A fresh capture (`utils.capture.Captured`) of `eager` that also runs
+    `eager` on every call's inputs, keeps the largest deviation of the
+    replay from it, and checks that the result of the call before is
+    unchanged (no output of one replay aliases a buffer of the next).
 
-    def __init__(self):
-        from cube_slam_wu_tpu_torch.slam import point_ba
+    With `nan_equal` an element that is NaN in both results counts as equal,
+    and `both_nan` counts, per leaf (`tree_flatten` order), the calls in
+    which it held such an element; without it a NaN fails the check."""
 
-        self.point_ba = point_ba
-        self.lm = point_ba.CapturedLM()
+    def __init__(self, captured, eager, nan_equal=False):
+        self.captured = captured
+        self.eager = eager
+        self.nan_equal = nan_equal
         self.worst = 0.0
         self.calls = 0
+        self.both_nan = {}
         self.last = None  # (the result handed back, a copy of it)
 
     @property
     def captures(self):
-        return self.lm.captures
+        return self.captured.captures
 
     @property
     def replays(self):
-        return self.lm.replays
+        return self.captured.replays
 
     @staticmethod
     def _leaves(result):
-        return [*result.cam_Tcw, *result.cube.pose, result.cube.scale, result.points,
-                result.chi2, result.lambda_final, result.accepted]
+        from cube_slam_wu_tpu_torch.utils.tree import tree_flatten
+
+        return tree_flatten(result)[0]
 
     def __call__(self, *args, **kw):
         from cube_slam_wu_tpu_torch.utils.tree import tree_map
 
-        got = self.lm(*args, **kw)
-        ref = self.point_ba.optimize(*args, **kw)
+        got = self.captured(*args, **kw)
+        ref = self.eager(*args, **kw)
         if self.last is not None:
             for a, b in zip(*map(self._leaves, self.last)):
                 assert torch.equal(a, b), "a replay overwrote the result of the call before"
-        for a, b in zip(self._leaves(got), self._leaves(ref)):
-            scale = torch.clamp(torch.amax(torch.abs(b.double())), min=1e-30)
-            dev = float(torch.amax(torch.abs(a.double() - b.double())) / scale)
+        for k, (a, b) in enumerate(zip(self._leaves(got), self._leaves(ref))):
+            a, b = a.double(), b.double()
+            if self.nan_equal:
+                both = torch.isnan(a) & torch.isnan(b)
+                if bool(both.any()):
+                    self.both_nan[k] = self.both_nan.get(k, 0) + 1
+                a, b = torch.where(both, 0.0, a), torch.where(both, 0.0, b)
+            scale = torch.clamp(torch.amax(torch.abs(b)), min=1e-30)
+            dev = float(torch.amax(torch.abs(a - b)) / scale)
             self.worst = max(self.worst, dev)
             assert dev <= 1e-6, (self.calls, dev)
         self.last = (got, tree_map(torch.clone, got))
         self.calls += 1
         return got
+
+    def report(self, what):
+        print(f"largest deviation of the replay from eager {what}: {self.worst:.3e}; "
+              f"leaves NaN in both (leaf: calls): {self.both_nan}")
+
+
+def _two_kitti_sessions():
+    """A 20-frame `run_kitti_frames` session at `kitti_points_w16`'s shapes
+    (window 16, 8 objects, 96 points, float32, the prior from frame 16 on,
+    the 2-px Huber), then a second one in the same process that ends after
+    frame 2: 23 frames."""
+    from tum_parity import tilt
+
+    from cube_slam_wu_tpu_torch.slam import pipeline
+    from cube_slam_wu_tpu_torch.utils import synth
+
+    seq = synth.make_sequence(n_frames=20, n_objects=6, size=(240, 320), speed=0.5,
+                              curve=0.002, noise_px=0.8, dropout=0.05, seed=4,
+                              ground_texture=4.0)
+    T_wc = tilt(seq.T_wc, 0.4, 0.7)
+    frames = list(zip(seq.images, seq.detections))
+    kw = dict(pose_feedback=True, point_weight=0.3, window=16, n_points=96, max_objects=8,
+              max_detections=4, iterations=5, dtype=torch.float32, device="cuda")
+    first = pipeline.run_kitti_frames(frames, seq.K, T_wc[0], **kw)
+    assert np.all(np.isfinite(first.traj_Twc_xyzq))
+    pipeline.run_kitti_frames(frames, seq.K, T_wc[0], on_result=lambda r: r.i == 2, **kw)
 
 
 @pytest.mark.cuda
@@ -232,22 +269,32 @@ def test_point_lm_replay_matches_eager_on_card(monkeypatch):
     one process; no result aliased by the next replay."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (graph capture runs on the card only)")
-    from tum_parity import tilt
+    from cube_slam_wu_tpu_torch.slam import point_ba
 
-    from cube_slam_wu_tpu_torch.slam import pipeline, point_ba
-    from cube_slam_wu_tpu_torch.utils import synth
+    from cube_slam_wu_tpu_torch.utils.capture import Captured
 
-    seq = synth.make_sequence(n_frames=20, n_objects=6, size=(240, 320), speed=0.5,
-                              curve=0.002, noise_px=0.8, dropout=0.05, seed=4,
-                              ground_texture=4.0)
-    T_wc = tilt(seq.T_wc, 0.4, 0.7)
-    frames = list(zip(seq.images, seq.detections))
-    checked = _CheckedLM()
+    checked = _Checked(Captured(point_ba.optimize), point_ba.optimize)
     monkeypatch.setattr(point_ba, "captured_lm", checked)
-    kw = dict(pose_feedback=True, point_weight=0.3, window=16, n_points=96, max_objects=8,
-              max_detections=4, iterations=5, dtype=torch.float32, device="cuda")
-    first = pipeline.run_kitti_frames(frames, seq.K, T_wc[0], **kw)
-    assert np.all(np.isfinite(first.traj_Twc_xyzq))
-    pipeline.run_kitti_frames(frames, seq.K, T_wc[0], on_result=lambda r: r.i == 2, **kw)
-    print(f"largest deviation of the replay from eager optimize: {checked.worst:.3e}")
+    _two_kitti_sessions()
+    checked.report("optimize")
     assert (checked.captures, checked.replays, checked.calls) == (1, 23, 23)
+
+
+@pytest.mark.cuda
+def test_absorb_replay_matches_eager_on_card(monkeypatch):
+    """The prior's absorption replayed from its CUDA graph against eager
+    `window.absorb_frame` on the same inputs, every frame of the same two
+    sessions (an empty mask before frame 16, the departing frame's edges
+    from then on): within float32 rounding (bit-equal is expected); one
+    capture across both sessions; no result aliased by the next replay."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (graph capture runs on the card only)")
+    from cube_slam_wu_tpu_torch.slam import window
+    from cube_slam_wu_tpu_torch.utils.capture import Captured
+
+    checked = _Checked(Captured(window.absorb_frame), window.absorb_frame, nan_equal=True)
+    monkeypatch.setattr(window, "captured_absorb", checked)
+    _two_kitti_sessions()
+    checked.report("absorb_frame")
+    assert (checked.captures, checked.replays, checked.calls) == (1, 23, 23)
+
